@@ -1,0 +1,33 @@
+"""Architecture registry of the port: ``get_config`` / ``get_reduced``.
+
+Only llama3.2-3b is ported so far; other architectures of the JAX
+package raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from repro_torch.configs import llama3_2_3b
+from repro_torch.configs.base import FedRoundSpec, ModelConfig  # noqa: F401
+
+_ARCHS = {"llama3.2-3b": llama3_2_3b}
+
+# the JAX package's other architectures, not ported yet
+_NOT_PORTED = ("hymba-1.5b", "minicpm3-4b", "whisper-tiny", "gemma3-1b",
+               "paligemma-3b", "deepseek-v3-671b", "mamba2-2.7b",
+               "qwen2-moe-a2.7b", "minitron-4b")
+
+def _module(arch_id: str):
+    if arch_id in _NOT_PORTED:
+        raise NotImplementedError(f"arch {arch_id!r}: not ported yet")
+    if arch_id not in _ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCHS)}")
+    return _ARCHS[arch_id]
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    """The published configuration of ``arch_id``."""
+    return _module(arch_id).CONFIG
+
+
+def get_reduced(arch_id: str) -> ModelConfig:
+    """The CPU-test variant of ``arch_id`` (2 layers, narrow widths)."""
+    return _module(arch_id).reduced()

@@ -1,0 +1,263 @@
+"""Config dataclasses for models and federated rounds.
+
+A copy of the JAX package's ``configs/base.py`` (``ModelConfig`` and
+``FedRoundSpec``), field for field, so that a spec means the same in both
+packages. The JAX package validates a spec against its live registries;
+this package holds the same registered names as constant tuples, because
+several of those registries are not ported yet (their engines raise
+``NotImplementedError`` when a spec selects them).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+# names registered in the JAX package's registries (core/api.py,
+# core/compression.py, core/local_solver.py, core/privatizer.py,
+# core/update_space.py, optim/schedules.py)
+ALGORITHM_NAMES = ("fedavg", "fedavgm", "fedprox", "scaffold", "scaffold_m",
+                   "sgd")
+SERVER_OPTIMIZER_NAMES = ("adam", "momentum", "sgd")
+COMPRESSOR_NAMES = ("int8_ef", "none", "randk_ef", "sign_ef", "topk_ef")
+LOCAL_SOLVER_NAMES = ("adam", "momentum", "sgd", "sgd_sched")
+PRIVATIZER_NAMES = ("distributed_gauss", "none", "server_gauss")
+UPDATE_SPACE_NAMES = ("full", "head_only", "lora")
+SCHEDULE_NAMES = ("constant", "warmup", "cosine")
+
+# per-name attributes the JAX registries carry and FedRoundSpec reads
+_MOMENTUM_DEFAULT_ALGORITHMS = ("scaffold_m", "fedavgm")
+_WHOLE_BATCH_ALGORITHMS = ("sgd",)
+_CLIPPING_PRIVATIZERS = ("server_gauss", "distributed_gauss")
+_RANKED_SPACES = ("lora",)
+_TARGETED_SPACES = ("head_only",)
+_SUBSET_SPACES = ("lora", "head_only")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Model hyper-parameters (the JAX package's ``ModelConfig``).
+
+    ``mla``, ``moe``, ``ssm`` and ``encoder`` hold the JAX package's
+    sub-configs; no model that needs them is ported yet, so the port's
+    model raises when one is set.
+    """
+
+    name: str
+    arch_type: str  # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    citation: str = ""
+
+    layer_pattern: str = "F"
+    sliding_window: int = 0
+    mlp_kind: str = "silu_gated"  # silu_gated | gelu_gated | gelu
+    norm_kind: str = "rmsnorm"  # rmsnorm | layernorm
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = True
+    logit_softcap: float = 0.0
+    scale_embeddings: bool = False
+    moe_impl: str = "ragged"
+    # >0: streaming cross-entropy over vocab chunks of this size (never
+    # materialises the (tokens, V) fp32 logits)
+    loss_chunk_vocab: int = 0
+
+    mla: Optional[Any] = None
+    moe: Optional[Any] = None
+    ssm: Optional[Any] = None
+    encoder: Optional[Any] = None
+
+    num_prefix_tokens: int = 0
+
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+
+    remat: bool = True
+
+    def pattern_for_layers(self) -> str:
+        p = (self.layer_pattern * ((self.num_layers // len(self.layer_pattern)) + 1))
+        return p[: self.num_layers]
+
+    def layer_uses_moe(self, layer_idx: int) -> bool:
+        return self.moe is not None and layer_idx >= self.moe.first_dense_layers
+
+    def num_params(self) -> int:
+        """Analytic parameter count."""
+        from repro_torch.models.model import count_params_analytic
+
+        return count_params_analytic(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class FedRoundSpec:
+    """How one communication round maps onto a global batch.
+
+    ``global_batch == num_sampled * local_steps * local_batch``. Every
+    field and default is the JAX package's; see its ``configs/base.py``
+    for what each beyond-paper knob does.
+    """
+
+    algorithm: str
+    num_clients: int  # N
+    num_sampled: int  # S
+    local_steps: int  # K
+    local_batch: int  # b_local
+    eta_l: float = 0.05
+    eta_g: float = 1.0
+    scaffold_option: str = "II"  # I | II
+    fedprox_mu: float = 1.0
+    strategy: str = "client_parallel"  # client_parallel | client_sequential
+    server_optimizer: str = ""
+    server_momentum: float = 0.0
+    server_beta1: float = 0.9
+    server_beta2: float = 0.99
+    server_eps: float = 1e-8
+    compress: str = ""
+    compress_uplink: dataclasses.InitVar[Optional[bool]] = None
+    compress_k: int = 32
+    compress_downlink: str = "none"
+    weighted_aggregation: bool = False
+    local_solver: str = "sgd"
+    local_momentum: float = 0.9
+    local_beta2: float = 0.99
+    eta_l_schedule: str = ""
+    privatizer: str = "none"
+    clip_norm: float = 0.0
+    noise_multiplier: float = 0.0
+    dp_delta: float = 1e-5
+    update_space: str = ""
+    lora_rank: int = 0
+    lora_alpha: float = 0.0
+    update_targets: str = ""
+    use_megakernel: bool = False
+
+    def __post_init__(self, compress_uplink):
+        assert self.algorithm in ALGORITHM_NAMES, (
+            self.algorithm, ALGORITHM_NAMES)
+        assert self.server_optimizer in ("",) + SERVER_OPTIMIZER_NAMES, (
+            self.server_optimizer, SERVER_OPTIMIZER_NAMES)
+        if self.local_solver == "":
+            object.__setattr__(self, "local_solver", "sgd")
+        assert self.local_solver in LOCAL_SOLVER_NAMES, (
+            self.local_solver, LOCAL_SOLVER_NAMES)
+        assert 0.0 <= self.local_momentum < 1.0, self.local_momentum
+        assert 0.0 <= self.local_beta2 < 1.0, self.local_beta2
+        if self.local_solver == "sgd_sched":
+            assert self.eta_l_schedule in SCHEDULE_NAMES, (
+                f"local_solver='sgd_sched' needs eta_l_schedule in "
+                f"{SCHEDULE_NAMES}, got {self.eta_l_schedule!r}")
+        else:
+            assert self.eta_l_schedule == "", (
+                f"eta_l_schedule={self.eta_l_schedule!r} has no effect for "
+                f"local_solver={self.local_solver!r}; use "
+                f"local_solver='sgd_sched'")
+        if self.compress == "":
+            explicit = (compress_uplink
+                        if isinstance(compress_uplink, bool) else False)
+            object.__setattr__(
+                self, "compress", "int8_ef" if explicit else "none")
+        assert self.compress in COMPRESSOR_NAMES, (
+            self.compress, COMPRESSOR_NAMES)
+        assert self.compress_downlink in COMPRESSOR_NAMES, (
+            self.compress_downlink, COMPRESSOR_NAMES)
+        assert self.compress_k >= 1, self.compress_k
+        if isinstance(compress_uplink, bool):
+            assert compress_uplink == (self.compress != "none"), (
+                f"compress_uplink={compress_uplink} contradicts "
+                f"compress={self.compress!r}; set compress "
+                f"('none' disables) instead of the back-compat flag")
+        assert self.privatizer in PRIVATIZER_NAMES, (
+            self.privatizer, PRIVATIZER_NAMES)
+        if self.privatizer in _CLIPPING_PRIVATIZERS:
+            assert self.clip_norm > 0.0, (
+                f"privatizer={self.privatizer!r} needs clip_norm > 0 "
+                f"(the L2 sensitivity bound), got {self.clip_norm}")
+            assert self.noise_multiplier > 0.0, (
+                f"privatizer={self.privatizer!r} needs noise_multiplier > 0 "
+                f"(z of the Gaussian mechanism), got "
+                f"{self.noise_multiplier}")
+            assert 0.0 < self.dp_delta < 1.0, (
+                f"dp_delta must lie in (0, 1), got {self.dp_delta}")
+            assert not self.weighted_aggregation, (
+                f"privatizer={self.privatizer!r} noise is calibrated for "
+                f"the uniform mean; weighted_aggregation is unsupported")
+        else:
+            assert self.clip_norm == 0.0, (
+                f"clip_norm={self.clip_norm} has no effect for "
+                f"privatizer={self.privatizer!r}")
+            assert self.noise_multiplier == 0.0, (
+                f"noise_multiplier={self.noise_multiplier} has no effect "
+                f"for privatizer={self.privatizer!r}")
+        if self.update_space == "":
+            object.__setattr__(self, "update_space", "full")
+        assert self.update_space in UPDATE_SPACE_NAMES, (
+            self.update_space, UPDATE_SPACE_NAMES)
+        if self.update_space in _RANKED_SPACES:
+            assert self.lora_rank >= 1, (
+                f"update_space={self.update_space!r} needs lora_rank >= 1, "
+                f"got {self.lora_rank}")
+            assert self.lora_alpha >= 0.0, self.lora_alpha
+        else:
+            assert self.lora_rank == 0, (
+                f"lora_rank={self.lora_rank} has no effect for "
+                f"update_space={self.update_space!r}")
+            assert self.lora_alpha == 0.0, (
+                f"lora_alpha={self.lora_alpha} has no effect for "
+                f"update_space={self.update_space!r}")
+        if self.update_space in _TARGETED_SPACES:
+            assert self.update_targets != "", (
+                f"update_space={self.update_space!r} needs update_targets "
+                f"(an empty selection trains nothing)")
+        if self.update_space not in _SUBSET_SPACES:
+            assert self.update_targets == "", (
+                f"update_targets={self.update_targets!r} has no effect for "
+                f"update_space={self.update_space!r}")
+        if (self.server_optimizer == "" and self.server_momentum == 0.0
+                and self.algorithm in _MOMENTUM_DEFAULT_ALGORITHMS):
+            object.__setattr__(self, "server_momentum", 0.9)
+        if self.algorithm in _WHOLE_BATCH_ALGORITHMS:
+            assert not self.weighted_aggregation, (
+                f"weighted_aggregation has no effect for whole-batch "
+                f"{self.algorithm!r}")
+            assert self.server_optimizer in ("", "sgd"), (
+                f"server_optimizer={self.server_optimizer!r} has no effect "
+                f"for whole-batch {self.algorithm!r}")
+            assert self.server_momentum == 0.0, (
+                f"server_momentum has no effect for whole-batch "
+                f"{self.algorithm!r}")
+            assert self.compress == "none", (
+                f"compress_uplink has no effect for whole-batch "
+                f"{self.algorithm!r}")
+            assert self.compress_downlink == "none", (
+                f"compress_downlink has no effect for whole-batch "
+                f"{self.algorithm!r}")
+            assert self.privatizer == "none", (
+                f"privatizer={self.privatizer!r} has no effect for "
+                f"whole-batch {self.algorithm!r}")
+            assert self.local_solver == "sgd", (
+                f"local_solver={self.local_solver!r} has no effect for "
+                f"whole-batch {self.algorithm!r}")
+        assert self.scaffold_option in ("I", "II")
+        assert self.strategy in ("client_parallel", "client_sequential")
+        assert self.num_sampled <= self.num_clients
+
+    @property
+    def global_batch(self) -> int:
+        return self.num_sampled * self.local_steps * self.local_batch
+
+
+class _CompressUplinkMirror(int):
+    """Truthy view of ``compress != "none"`` (an ``int`` subclass, so
+    ``__post_init__`` tells the value ``dataclasses.replace`` re-passes
+    apart from an explicit user bool)."""
+
+    def __repr__(self):
+        return repr(bool(self))
+
+
+FedRoundSpec.compress_uplink = property(
+    lambda self: _CompressUplinkMirror(self.compress != "none"))

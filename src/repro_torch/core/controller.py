@@ -1,0 +1,204 @@
+"""Host-side federated training controller (the JAX package's
+``core/controller.py``), synchronous mode.
+
+``FederatedTrainer`` owns the ``ServerState`` (x, c) on its device, the
+N-client host store of control variates (the paper's stateful clients),
+the cohort sampler and the data stream. Each round samples, gathers,
+loads, runs ``core.rounds.run_round`` and scatters, strictly in order —
+the reference's ``pipeline_depth=0`` loop, with the same host RNG streams
+(``ClientSampler(seed)``, data from ``np.random.default_rng(seed + 1)``),
+so both packages draw the same cohorts and batches.
+
+The pipelined, scanned, tiered and async modes are not ported yet and
+raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.api import (
+    ClientRoundState,
+    get_algorithm,
+    init_server_state,
+)
+from repro_torch.core.local_solver import (
+    get_local_solver,
+    megakernel_incompatibility,
+    resolve_local_solver,
+)
+from repro_torch.core.rounds import check_ported, round_comm_bytes, run_round
+from repro_torch.core.sampling import ClientSampler
+from repro_torch.core.store import ClientStateStore
+from repro_torch.device import resolve_device
+
+
+def make_grad_fn(loss_fn: Callable) -> Callable:
+    """``loss_fn(params, batch) -> (scalar, metrics)``  =>
+    ``grad_fn(params, batch) -> (grads, metrics)`` by autograd.
+
+    The gradient is taken at detached copies of the leaves, so ``params``
+    (a client's working copy) can be updated in place afterwards. The
+    loss's ``megakernel_grad`` marker is propagated, so
+    ``megakernel_incompatibility`` gates on the grad fn it receives."""
+
+    def grad_fn(params, batch):
+        with torch.enable_grad():
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+            loss, metrics = loss_fn(leaves, batch)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return (dict(zip(leaves, grads)),
+                {k: v.detach() for k, v in metrics.items()})
+
+    grad_fn.megakernel_grad = getattr(loss_fn, "megakernel_grad", None)
+    return grad_fn
+
+
+class FederatedTrainer:
+    """Runs the ported federated algorithms (scaffold / fedavg / sgd)
+    against a federated dataset whose ``round_batches(ids, K, b, rng,
+    device=...)`` returns a dict with leaves (S, K, b, ...).
+
+    ``init_params(generator)`` builds the initial model from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (a callable
+    that ignores it, e.g. one returning converted JAX weights, is fine);
+    the leaves are moved to ``device``. ``device`` defaults to the card
+    and raises where there is none.
+    """
+
+    def __init__(self, loss_fn, init_params, spec, dataset, *, seed: int = 0,
+                 use_fused_update: bool = False, device="cuda",
+                 pipeline_depth: int = 0, scan_rounds: int = 0,
+                 store: str = "dense", store_backend: str = "",
+                 async_buffer: int = 0):
+        self.device = resolve_device(device)
+        pending = []
+        if pipeline_depth:
+            pending.append("pipelined engine (pipeline_depth)")
+        if scan_rounds:
+            pending.append("scanned engine (scan_rounds)")
+        if store != "dense":
+            pending.append(f"store {store!r}")
+        if async_buffer:
+            pending.append("async engine (async_buffer)")
+        if pending:
+            raise NotImplementedError(", ".join(pending) + ": not ported yet")
+        check_ported(spec)
+        self.spec = spec
+        self.dataset = dataset
+        self.algorithm = get_algorithm(spec.algorithm)
+        if spec.weighted_aggregation and not hasattr(dataset, "client_sizes"):
+            raise ValueError(
+                "spec.weighted_aggregation=True needs the dataset to expose "
+                "client_sizes(ids); add it or disable weighting")
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        x = {k: v.to(self.device) for k, v in init_params(gen).items()}
+        self.server = init_server_state(spec, x)
+        self.store = ClientStateStore(self.server.x, spec.num_clients,
+                                      backend=store_backend)
+        self.local_solver = get_local_solver(resolve_local_solver(spec))
+        self.sampler = ClientSampler(spec.num_clients, spec.num_sampled, seed)
+        self._rng = np.random.default_rng(seed + 1)
+        self._comm_bytes = {
+            k: float(v) for k, v in round_comm_bytes(
+                spec, self.server.x,
+                stateful_clients=self.algorithm.stateful_clients).items()}
+        self._grad_fn = grad_fn = make_grad_fn(loss_fn)
+        self._use_fused_update = use_fused_update
+        # megakernel capability gate, decided once from static config: ""
+        # when every local loop takes the K-step kernel, a reason string
+        # when it falls back to the per-step path, None when not asked
+        self.megakernel_fallback_reason: Optional[str] = None
+        if spec.use_megakernel:
+            if self.algorithm.whole_batch:
+                self.megakernel_fallback_reason = (
+                    f"whole-batch {spec.algorithm!r} runs no local steps")
+            else:
+                self.megakernel_fallback_reason = megakernel_incompatibility(
+                    grad_fn, self.local_solver,
+                    prox_mu=self.algorithm.prox_mu(spec),
+                    params=self.server.x) or ""
+            if self.megakernel_fallback_reason:
+                warnings.warn(
+                    f"use_megakernel requested but running the per-step "
+                    f"path: {self.megakernel_fallback_reason}", stacklevel=2)
+        self.round_idx = 0
+        self.history = []
+
+    # -- views of the server state ----------------------------------------
+
+    @property
+    def x(self):
+        return self.server.x
+
+    @x.setter
+    def x(self, value):
+        self.server = dataclasses.replace(self.server, x=value)
+
+    @property
+    def c(self):
+        return self.server.c
+
+    @c.setter
+    def c(self, value):
+        self.server = dataclasses.replace(self.server, c=value)
+
+    def eval_params(self):
+        """The full parameter dict for evaluation (``server.x``)."""
+        return self.server.x
+
+    # -- the synchronous round loop ----------------------------------------
+
+    def run_round(self) -> Dict[str, Any]:
+        """Sample, gather, load, run one round, scatter; returns the
+        round's metrics (also appended to ``history``)."""
+        ids = self.sampler.sample()
+        c_i = self.store.gather(ids)
+        weights = None
+        if self.spec.weighted_aggregation:
+            weights = torch.as_tensor(
+                np.asarray(self.dataset.client_sizes(ids), np.float32))
+        batches = self.dataset.round_batches(
+            ids, self.spec.local_steps, self.spec.local_batch, self._rng,
+            device=self.device)
+        out = run_round(self._grad_fn, self.spec, self.server,
+                        ClientRoundState(c_i=c_i, weights=weights), batches,
+                        use_fused_update=self._use_fused_update)
+        del batches, c_i
+        self.server = out.server
+        if self.algorithm.stateful_clients:
+            self.store.scatter(ids, out.clients.c_i)
+        self.round_idx += 1
+        m = {k: float(v) for k, v in out.metrics.items()}
+        m.update(self._comm_bytes)
+        if self.megakernel_fallback_reason is not None:
+            m["megakernel_fallback_reason"] = self.megakernel_fallback_reason
+        m["round"] = self.round_idx
+        self.history.append(m)
+        return m
+
+    def run(self, rounds: int, *, eval_fn: Optional[Callable] = None,
+            eval_every: int = 0, target_metric: Optional[float] = None,
+            metric_name: str = "accuracy", verbose: bool = False):
+        """Run rounds; with ``target_metric``, stop once
+        ``eval_fn(x)[metric_name] >= target`` and return the rounds used."""
+        for r in range(rounds):
+            m = self.run_round()
+            if eval_fn is not None and eval_every and (r + 1) % eval_every == 0:
+                em = eval_fn(self.eval_params())
+                m.update(em)
+                if verbose:
+                    print(f"round {r+1}: {m}")
+                if (target_metric is not None
+                        and em[metric_name] >= target_metric):
+                    return r + 1
+        return rounds
+
+    def close(self) -> None:
+        """Release the host store."""
+        self.store.close()

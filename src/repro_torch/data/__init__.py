@@ -1,0 +1,7 @@
+from repro_torch.data.quadratics import (  # noqa: F401
+    QuadraticDataset,
+    make_paper_fig3,
+    make_similarity_quadratics,
+    quadratic_loss,
+)
+from repro_torch.data.synthetic_lm import SyntheticLMFederated  # noqa: F401

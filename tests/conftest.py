@@ -13,3 +13,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "scale: population-scale smoke tests (N >= 1e5, still CI-fast)")
+    # tests of the PyTorch port's CUDA kernels: they run on an NVIDIA GPU
+    # and skip elsewhere (python3 chip_smoke.py covers the same on a card)
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU; skipped where torch.cuda.is_available() "
+        "is False")
