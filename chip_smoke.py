@@ -8,16 +8,28 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each of which raises on failure (the script then exits non-zero):
 
   1. environment: card name and power limit, torch/CUDA versions, TF32 off
-  2. build: both CUDA kernels from src/repro_torch/kernels/**/csrc into
+  2. build: both CUDA sources from src/repro_torch/kernels/**/csrc into
      build/kernels/, the nvcc processes started together
   3. the fused corrected-step kernel (B1) against its plain version
-  4. the K-step local-loop kernel (B3) against its plain version
-  5. a 2-layer fp32 llama, one SCAFFOLD round on the card vs the CPU
-  6. the LM slice: llama3.2-3b widths in bf16, SCAFFOLD through the fused
+  4. the fused heavy-ball kernel (B2) against its plain version
+  5. the K-step local-loop kernel (B3) against its plain version
+  6. the heavy-ball K-step kernel (B4) against its plain version
+  7. a 2-layer fp32 llama, one SCAFFOLD round on the card vs the CPU
+  8. the LM slice: llama3.2-3b widths in bf16, SCAFFOLD through the fused
      update kernel, with its launch count, kernel timing, memory and a
      profiled round
-  7. the quadratics slice: the K-step kernel path and the per-step fused
-     path, launch counts and agreement
+  9. the LM momentum path: the same widths, local heavy-ball through B2,
+     the slot rows carried across rounds in the solver store, B2 timed
+  10. the quadratics slice: the K-step kernel path and the per-step fused
+     path, launch counts and agreement, B3 timed
+  11. quadratics, heavy-ball (scaffold_m, local momentum): the B4 path and
+     the per-step B2 path, launch counts and agreement, B4 timed
+  12. quadratics, sgd_sched (cosine) with server adam through B3; local
+     adam and fedprox fall back to the per-step path by the reference's
+     reasons
+
+Each main path runs with every launch count set to 0 just before it and
+read just after.
 
 It prints the ``kernels`` JSON line, the card's name and power limit, and
 last the ``{"ok": true, "device": ...}`` line. It imports nothing of JAX
@@ -28,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import resource
 import statistics
 import subprocess
 import sys
@@ -39,9 +52,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"  # long records (git-ignored)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-LM_MEMORY_LIMIT = 72e9     # bytes the LM phase may plan to hold on the card
+# bytes the LM phases may plan to hold on the card (80 GiB on an H100 80GB).
+# _lm_plan over-reckons what they hold: 60.0 GB planned vs 55.87 GB at 28
+# layers without a slot, 70.6 vs 67.91 GB at 27 layers with the fp32 slot
+# (H100 80GB HBM3, 700 W), so a 75 GB plan holds ~72 GB
+LM_MEMORY_LIMIT = 75e9
+# bytes of client-state rows the LM phases may plan to hold in host memory
+# (the machine with one card has 96 GiB)
+HOST_MEMORY_LIMIT = 85e9
+# B4 vs plain, bf16 y: m_K's and the losses' bound in a case where y's
+# bf16 rounding flipped (1.52e-4 and 6.57e-4 the largest on an H100 80GB
+# HBM3, 700 W; 3x room)
+B4_FLIPPED_BOUND = 2e-3
 B1_REPLACES = "src/repro/kernels/scaffold_update/kernel.py:46"
+B2_REPLACES = "src/repro/kernels/scaffold_update/kernel.py:73"
 B3_REPLACES = "src/repro/kernels/scaffold_update/megakernel.py:108"
+B4_REPLACES = "src/repro/kernels/scaffold_update/megakernel.py:141"
+SOURCES = {"update": "src/repro_torch/kernels/scaffold_update/csrc/"
+                     "scaffold_update.cu",
+           "loop": "src/repro_torch/kernels/scaffold_update/csrc/"
+                   "local_loop.cu"}
 
 
 def log(msg: str) -> None:
@@ -77,6 +107,33 @@ def cuda_ms(fn, iters: int, flush=None) -> float:
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def in_turns(kernel, plain, turns: int, k_iters: int, p_iters: int,
+             flush=None):
+    """Kernel and plain version timed in alternating turns (plain,
+    kernel, kernel, plain, ...), each turn a ``cuda_ms`` mean; returns
+    the two lists of per-turn ms."""
+    k_all, p_all = [], []
+    for turn in range(turns):
+        for side in (("plain", "kernel") if turn % 2 == 0
+                     else ("kernel", "plain")):
+            if side == "kernel":
+                k_all.append(cuda_ms(kernel, k_iters, flush=flush))
+            else:
+                p_all.append(cuda_ms(plain, p_iters, flush=flush))
+    return k_all, p_all
+
+
+def spread(ms) -> str:
+    """``median ms (min-max over n turns)``."""
+    return (f"{statistics.median(ms):.4f} ms ({len(ms)} turns, "
+            f"{min(ms):.4f}-{max(ms):.4f})")
+
+
+def host_peak_gb() -> float:
+    """Peak resident host memory of this process, GB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
 
 
 def ulp_distance(a, b):
@@ -120,9 +177,11 @@ def phase_environment():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
-        f"device(s); allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32}"
-        f" cudnn={torch.backends.cudnn.allow_tf32}")
+        f"{torch.cuda.get_device_name(0)} ("
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB), "
+        f"{torch.cuda.device_count()} device(s); allow_tf32 matmul="
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
+        f"{torch.backends.cudnn.allow_tf32}")
     return smi
 
 
@@ -186,6 +245,57 @@ def phase_b1_plain():
         raise AssertionError("scaffold_update_packed mixed tree failed")
 
 
+def phase_b2_plain():
+    """Phase 4: the fused heavy-ball kernel against its plain version."""
+    import torch
+
+    from repro_torch.kernels.scaffold_update import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    eta, beta, n = 0.05, 0.9, 1_000_003
+    for dtype in (torch.float32, torch.bfloat16):
+        y, g, c = (torch.randn(n, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        m = torch.randn(n, generator=gen, device="cuda")
+        yo, mo = ops.scaffold_momentum_update(y, g, c, m, eta, beta)
+        yp, mp = ref.scaffold_momentum_update_ref(y, g, c, m, eta, beta)
+        torch.cuda.synchronize()
+        uy, um = ulp_distance(yo, yp), ulp_distance(mo, mp)
+        log(f"scaffold_momentum_update n={n} y {dtype}, m fp32: worst "
+            f"{uy} ulp in y', {um} ulp in m' (bounds 1 and 0 ulp)")
+        if uy > 1 or um > 0:
+            raise AssertionError(f"scaffold_momentum_update {dtype}: "
+                                 f"{uy}/{um} ulp")
+    # a mixed-dtype tree of odd sizes, y and m updated in place: one
+    # launch per (y, g, corr, m) dtype group
+    f32, bf16 = torch.float32, torch.bfloat16
+    kinds = {"a": (bf16, bf16, bf16, 4099), "b": (f32, bf16, f32, 77),
+             "c": (f32, f32, f32, 100_003), "d": (bf16, bf16, bf16, 9),
+             "e": (f32, bf16, f32, 1 << 16)}
+    y, g, c, m = {}, {}, {}, {}
+    for k, (ty, tg, tc, size) in kinds.items():
+        y[k] = torch.randn(size, generator=gen, device="cuda").to(ty)
+        g[k] = torch.randn(size, generator=gen, device="cuda").to(tg)
+        c[k] = torch.randn(size, generator=gen, device="cuda").to(tc)
+        m[k] = torch.randn(size, generator=gen, device="cuda")
+    groups = len({v[:3] for v in kinds.values()})
+    want_y, want_m = ref.scaffold_momentum_update_tree_ref(y, g, c, m, eta,
+                                                           beta)
+    before = ops.LAUNCHES["scaffold_momentum_update"]
+    ops.scaffold_momentum_update_packed(y, g, c, m, eta, beta, out=y,
+                                        m_out=m)
+    launches = ops.LAUNCHES["scaffold_momentum_update"] - before
+    torch.cuda.synchronize()
+    uy = max(ulp_distance(y[k], want_y[k]) for k in y)
+    um = max(ulp_distance(m[k], want_m[k]) for k in y)
+    log(f"scaffold_momentum_update_packed mixed tree, in place: {groups} "
+        f"dtype groups, {launches} launches, worst leaf {uy} ulp in y', "
+        f"{um} ulp in m' (bounds 1 and 0)")
+    if launches != groups or uy > 1 or um > 0:
+        raise AssertionError("scaffold_momentum_update_packed mixed tree "
+                             "failed")
+
+
 def _b3_inputs(gen, d, K, bsz, ty, tab):
     import torch
 
@@ -199,7 +309,7 @@ def _b3_inputs(gen, d, K, bsz, ty, tab):
 
 
 def phase_b3_plain():
-    """Phase 4: the K-step loop kernel against its plain version."""
+    """Phase 5: the K-step loop kernel against its plain version."""
     import torch
 
     from repro_torch.kernels.scaffold_update import megakernel as mk
@@ -216,8 +326,8 @@ def phase_b3_plain():
                     for bsz in (1, 2):
                         y, corr, eta, A, b = _b3_inputs(gen, d, K, bsz, ty,
                                                         tab)
-                        yk, lk = mk.scaffold_local_loop_cuda(y, corr, eta,
-                                                             A, b)
+                        yk, _, lk = mk.scaffold_local_loop_cuda(
+                            y, corr, eta, A, b)
                         yp, _, lp = ref.scaffold_local_loop_ref(y, corr, eta,
                                                                 A, b)
                         torch.cuda.synchronize()
@@ -246,8 +356,72 @@ def phase_b3_plain():
     (OUT / "b3_cases.txt").write_text("\n".join(lines) + "\n")
 
 
+def phase_b4_plain():
+    """Phase 6: the heavy-ball K-step loop kernel against its plain
+    version, on fresh and broadcast A."""
+    import torch
+
+    from repro_torch.kernels.scaffold_update import megakernel as mk
+    from repro_torch.kernels.scaffold_update import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    f32, bf16 = torch.float32, torch.bfloat16
+    beta, lines, failed = 0.9, [], []
+    for ty in (f32, bf16):
+        worst, flipped = [0.0, 0.0, 0.0], 0
+        for d in (20, 1000, 1024):
+            for K in (1, 10):
+                for bsz in (1, 2):
+                    y, corr, eta, A, b = _b3_inputs(gen, d, K, bsz, ty, f32)
+                    m = torch.randn(d, generator=gen, device="cuda")
+                    layouts = {"fresh": (A, b), "broadcast": (
+                        A[:1, :1].expand(K, bsz, d, d),
+                        b[:1, :1].expand(K, bsz, d))}
+                    for layout, (AA, bb) in layouts.items():
+                        yk, mk_, lk = mk.scaffold_local_loop_cuda(
+                            y, corr, eta, AA, bb, m=m, beta=beta)
+                        yp, mp, lp = ref.scaffold_local_loop_ref(
+                            y, corr, eta, AA, bb, m=m, beta=beta)
+                        torch.cuda.synchronize()
+                        # y_K as for B3; m_K and the losses (fp32) to
+                        # 1e-5. bf16 y: where a rounding of y flipped
+                        # (y_K differs, within its bound) every later g,
+                        # hence m and the losses, moves by up to ~7e-4
+                        # (H100, beta 0.9); such a case takes
+                        # B4_FLIPPED_BOUND
+                        scale = float(yp.float().abs().max())
+                        bound = (1e-5 if ty == f32
+                                 else 2 * bf16_ulp(scale) / scale)
+                        errs = (rel_err(yk, yp), rel_err(mk_, mp),
+                                rel_err(lk, lp))
+                        flip = ty == bf16 and errs[0] > 0
+                        bound_ml = B4_FLIPPED_BOUND if flip else 1e-5
+                        flipped += flip
+                        lines.append(
+                            f"d={d} K={K} bsz={bsz} y {ty} A {layout}: rel "
+                            f"err y_K {errs[0]:.2e} (bound {bound:.2e}), m_K"
+                            f" {errs[1]:.2e}, losses {errs[2]:.2e} (bound "
+                            f"{bound_ml:.0e}{', y_K flipped' if flip else ''}"
+                            f")")
+                        if errs[0] > bound or max(errs[1:]) > bound_ml:
+                            failed.append(lines[-1])
+                        worst = [max(w, e) for w, e in zip(worst, errs)]
+        log(f"scaffold_momentum_local_loop y {ty}, A,b fp32, beta {beta}: 24 "
+            f"cases (d 20/1000/1024, K 1/10, bsz 1/2, A fresh/broadcast), "
+            f"worst rel err y_K {worst[0]:.2e}, m_K {worst[1]:.2e}, losses "
+            f"{worst[2]:.2e} (bounds "
+            + ("1e-5 for all three)" if ty == f32 else
+               f"y_K 2 bf16 ulps of max|y|; m_K and losses 1e-5, "
+               f"{B4_FLIPPED_BOUND:.0e} in the {flipped} of 24 cases whose "
+               f"y_K shows a flipped bf16 rounding)"))
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "b4_cases.txt").write_text("\n".join(lines) + "\n")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
 def phase_lm_small():
-    """Phase 5: a 2-layer fp32 llama round, card vs CPU."""
+    """Phase 7: a 2-layer fp32 llama round, card vs CPU."""
     import torch
 
     from repro_torch.configs import get_reduced
@@ -276,11 +450,12 @@ def phase_lm_small():
         raise AssertionError(f"lm check rel err {err}")
 
 
-def _lm_plan(cfg, seq_len: int, local_batch: int):
-    """Reckoned peak device bytes of the LM slice at cfg's depth: the
-    param-sized trees resident at once (x, c, the dy and dc sums, the
+def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0):
+    """Reckoned peak device bytes of an LM phase at cfg's depth: the
+    param-sized bf16 trees resident at once (x, c, the dy and dc sums, the
     client's c_i, c - c_i, its working copy y, and the grads or, after the
-    steps, c_i_new and dc: 8), plus activations and temporaries."""
+    steps, c_i_new and dc: 8), the client's solver slot (``slot_bytes`` a
+    parameter), plus activations and temporaries."""
     from repro_torch.models.model import count_params_analytic
 
     n = count_params_analytic(cfg)
@@ -291,12 +466,47 @@ def _lm_plan(cfg, seq_len: int, local_batch: int):
                             + 2 * cfg.num_heads * seq_len ** 2 * 4 * local_batch)
     largest = 2 * cfg.num_layers * e * f
     temps = 2 * 2 * cfg.vocab_size * e + 4 * largest
-    return n, tree, 8 * tree + act + temps
+    return n, tree, 8 * tree + slot_bytes * n + act + temps
+
+
+def _lm_fit(spec, seq_len: int, slot_bytes: int = 0):
+    """llama3.2-3b at its published widths, cut in depth (from its full 28
+    layers down) until the device plan fits LM_MEMORY_LIMIT and the host
+    rows (the store's N and the gathered cohort's S, each a c_i tree and a
+    slot) fit HOST_MEMORY_LIMIT. Logs the reckoning; returns ``(cfg, n,
+    tree bytes)``."""
+    from repro_torch.configs import get_config
+
+    base = dataclasses.replace(get_config("llama3.2-3b"),
+                               loss_chunk_vocab=16032)
+    rows = spec.num_clients + spec.num_sampled
+    depth = base.num_layers
+    while True:
+        cfg = dataclasses.replace(base, num_layers=depth)
+        n, tree, peak = _lm_plan(cfg, seq_len, spec.local_batch, slot_bytes)
+        host = rows * (tree + slot_bytes * n)
+        if (peak <= LM_MEMORY_LIMIT and host <= HOST_MEMORY_LIMIT
+                or depth == 1):
+            break
+        depth -= 1
+    slot = (f" + the client's fp32 slot {slot_bytes * n / 1e9:.1f} GB"
+            if slot_bytes else "")
+    log(f"lm: llama3.2-3b widths (d_model {cfg.d_model}, {cfg.num_heads}q/"
+        f"{cfg.num_kv_heads}kv heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab"
+        f" {cfg.vocab_size}, tied, bf16), CE over vocab chunks of "
+        f"{cfg.loss_chunk_vocab}; {n} params, {tree / 1e9:.2f} GB a tree")
+    log(f"lm: memory reckoning at num_layers {depth}: 8 param-sized trees "
+        f"= {8 * tree / 1e9:.1f} GB{slot} + activations and temporaries = "
+        f"{peak / 1e9:.1f} GB (limit {LM_MEMORY_LIMIT / 1e9:.0f} GB); host "
+        f"rows N {spec.num_clients} + S {spec.num_sampled} = {rows} x "
+        f"{(tree + slot_bytes * n) / 1e9:.2f} GB = {host / 1e9:.1f} GB (limit"
+        f" {HOST_MEMORY_LIMIT / 1e9:.0f} GB)")
+    if depth != base.num_layers:
+        log(f"reduced: num_layers {base.num_layers} -> {depth}")
+    return cfg, n, tree
 
 
 def _lm_trainer(cfg, spec, seq_len, **kw):
-    import torch
-
     from repro_torch.core import FederatedTrainer
     from repro_torch.data import SyntheticLMFederated
     from repro_torch.models import model as M
@@ -316,10 +526,9 @@ def _device_time_ms(ev) -> float:
 
 
 def phase_lm_full(result):
-    """Phase 6: the LM slice at llama3.2-3b widths in bf16."""
+    """Phase 8: the LM slice at llama3.2-3b widths in bf16."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import FedRoundSpec
     from repro_torch.core import megakernel_incompatibility
     from repro_torch.kernels.scaffold_update import ops, ref
@@ -328,24 +537,8 @@ def phase_lm_full(result):
     spec = FedRoundSpec(algorithm="scaffold", num_clients=4, num_sampled=2,
                         local_steps=2, local_batch=1, eta_l=0.01,
                         strategy="client_sequential")
-    base = dataclasses.replace(get_config("llama3.2-3b"),
-                               loss_chunk_vocab=16032)
-    depth = base.num_layers
-    while True:
-        cfg = dataclasses.replace(base, num_layers=depth)
-        n, tree, peak = _lm_plan(cfg, seq_len, spec.local_batch)
-        if peak <= LM_MEMORY_LIMIT or depth == 1:
-            break
-        depth -= 1
-    log(f"lm: llama3.2-3b widths (d_model {cfg.d_model}, {cfg.num_heads}q/"
-        f"{cfg.num_kv_heads}kv heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab"
-        f" {cfg.vocab_size}, tied, bf16), CE over vocab chunks of "
-        f"{cfg.loss_chunk_vocab}; {n} params, {tree / 1e9:.2f} GB a tree")
-    log(f"lm: memory reckoning at num_layers {depth}: 8 param-sized trees "
-        f"= {8 * tree / 1e9:.1f} GB + activations and temporaries = "
-        f"{peak / 1e9:.1f} GB (limit {LM_MEMORY_LIMIT / 1e9:.0f} GB)")
-    if depth != base.num_layers:
-        log(f"reduced: num_layers {base.num_layers} -> {depth}")
+    cfg, n, tree = _lm_fit(spec, seq_len)
+    depth = cfg.num_layers
     t0 = time.perf_counter()
     tr = _lm_trainer(cfg, spec, seq_len)
     torch.cuda.synchronize()
@@ -459,26 +652,144 @@ def phase_lm_full(result):
     torch.cuda.empty_cache()
 
 
-def phase_quadratics(result):
-    """Phase 7: the quadratics slice, K-step kernel vs per-step path."""
+def phase_lm_momentum(result):
+    """Phase 9: local heavy-ball on the LM through B2, the slot rows
+    carried across rounds in the solver store; B2 timed on the tree."""
     import torch
 
     from repro_torch.configs.base import FedRoundSpec
-    from repro_torch.core import FederatedTrainer
-    from repro_torch.data import make_similarity_quadratics, quadratic_loss
-    from repro_torch.kernels.scaffold_update import megakernel as mk
     from repro_torch.kernels.scaffold_update import ops, ref
 
+    # N = S = 2: both clients run every round, so round 2 starts from the
+    # slot rows round 1 wrote
+    seq_len, rounds = 256, 2
+    spec = FedRoundSpec(algorithm="scaffold", num_clients=2, num_sampled=2,
+                        local_steps=2, local_batch=1, eta_l=0.01,
+                        local_solver="momentum", local_momentum=0.9,
+                        strategy="client_sequential")
+    cfg, _, _ = _lm_fit(spec, seq_len, slot_bytes=4)
     t0 = time.perf_counter()
-    ds = make_similarity_quadratics(20, 1024, delta=0.3, G=8.0, mu=0.3)
-    log(f"quad: 20 clients, d=1024 built in {time.perf_counter() - t0:.1f} s")
-    spec = FedRoundSpec(algorithm="scaffold", num_clients=20, num_sampled=4,
-                        local_steps=10, local_batch=1, eta_l=0.1)
-    rounds, xs = 3, {}
-    for name, sp, want in (
-            ("megakernel", dataclasses.replace(spec, use_megakernel=True),
-             (12, 0)),
-            ("per_step_fused", spec, (0, 120))):
+    tr = _lm_trainer(cfg, spec, seq_len)
+    torch.cuda.synchronize()
+    log(f"lm momentum: trainer set-up {time.perf_counter() - t0:.1f} s (host"
+        f" stores: c_i {tr.store.population_nbytes / 1e9:.1f} GB, solver "
+        f"slots {tr.solver_store.population_nbytes / 1e9:.1f} GB)")
+    groups = len({v.dtype for v in tr.x.values()})
+    tokens = spec.num_sampled * spec.local_steps * spec.local_batch * seq_len
+
+    ops.reset_launches()
+    for r in range(rounds):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = tr.run_round()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        log(f"lm momentum round {r + 1}: loss {m['loss']:.4f}, drift "
+            f"{m['drift']:.4e}, {sec:.3f} s, {tokens / sec:.1f} tokens/s, "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+            f" GB, peak host memory {host_peak_gb():.1f} GB")
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["drift"])):
+            raise AssertionError(f"lm momentum round {r + 1}: non-finite {m}")
+        if r == 0:
+            # the slots round 1 wrote (a sample of each leaf of each row)
+            rows = tr.solver_store.rows
+            seen = [max(float(v[i].reshape(-1)[:4096].abs().max())
+                        for v in rows.values())
+                    for i in range(spec.num_clients)]
+            log(f"lm momentum: solver store after round 1, max |m| over the "
+                f"first 4096 elements of each leaf, by client: "
+                + ", ".join(f"{v:.4e}" for v in seen))
+            if not all(v > 0 for v in seen):
+                raise AssertionError("lm momentum: zero slot rows after "
+                                     "round 1")
+    launches = dict(ops.LAUNCHES)
+    want = rounds * spec.num_sampled * spec.local_steps * groups
+    log(f"lm momentum: scaffold_momentum_update launches "
+        f"{launches['scaffold_momentum_update']} == rounds {rounds} x S "
+        f"{spec.num_sampled} x K {spec.local_steps} x groups {groups} = "
+        f"{want}; all launches {launches}")
+    if (launches["scaffold_momentum_update"] != want
+            or sum(launches.values()) != want):
+        raise AssertionError(f"lm momentum: launches {launches}, want B2 "
+                             f"{want} and nothing else")
+    result["b2_launches"] = want
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+    # B2 on the full-depth tree, whatever depth the trainer ran at: kernel
+    # vs plain (in turns) vs bound
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    full = dataclasses.replace(cfg, num_layers=get_config(
+        "llama3.2-3b").num_layers)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    eta, beta = spec.eta_l, spec.local_momentum
+    y = M.init_params(full, gen, device="cuda")
+    g, c = ({k: torch.randn(v.shape, generator=gen, device="cuda",
+                            dtype=v.dtype) for k, v in y.items()}
+            for _ in range(2))
+    mm = {k: torch.randn(v.shape, generator=gen, device="cuda")
+          for k, v in y.items()}
+    out_y, out_m = ops.scaffold_momentum_update_packed(y, g, c, mm, eta, beta)
+    err, worst = 0.0, (0, 0)
+    for k in y:
+        py, pm = ref.scaffold_momentum_update_ref(y[k], g[k], c[k], mm[k],
+                                                  eta, beta)
+        worst = (max(worst[0], ulp_distance(out_y[k], py)),
+                 max(worst[1], ulp_distance(out_m[k], pm)))
+        err = max(err, float((out_y[k].float() - py.float()).abs().max()),
+                  float((out_m[k] - pm).abs().max()))
+        del py, pm
+    del out_y, out_m
+    if worst[0] > 1 or worst[1] > 0:
+        raise AssertionError(f"lm tree B2: {worst} ulp (y', m')")
+
+    def plain():
+        for k in y:
+            ref.scaffold_momentum_update_ref(y[k], g[k], c[k], mm[k], eta,
+                                             beta)
+
+    k_all, p_all = in_turns(
+        lambda: ops.scaffold_momentum_update_packed(
+            y, g, c, mm, eta, beta, out=y, m_out=mm), plain,
+        turns=4, k_iters=3, p_iters=1)
+    # y, g, corr and m read once, y' and m' written once
+    nbytes = sum(v.numel() * (3 * v.element_size() + 4 + v.element_size()
+                              + 4) for v in y.values())
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    k_ms, p_ms = statistics.median(k_all), statistics.median(p_all)
+    n_full = sum(v.numel() for v in y.values())
+    log(f"scaffold_momentum_update llama3.2-3b@{full.num_layers}L tree "
+        f"({n_full} bf16 params, fp32 slot, {len(y)} leaves, "
+        f"{len(ops.dtype_groups(y, g, c, mm))} group): kernel "
+        f"{spread(k_all)}, plain {spread(p_all)}, bound {bound:.3f} ms "
+        f"(bytes, {nbytes / 1e9:.2f} GB), {nbytes / k_ms / 1e6:.0f} GB/s; "
+        f"max |kernel - plain| {err:.3e}, worst leaf {worst[0]} ulp in y', "
+        f"{worst[1]} in m'")
+    result["b2"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                        bound_ms=bound)
+    del y, g, c, mm
+    torch.cuda.empty_cache()
+
+
+def _quad_paths(ds, spec, runs, b_keys, rounds=3):
+    """Train ``spec`` on ``ds`` once per ``(name, changes, launches)`` run
+    on the card, the launch counts set to 0 just before each run and read
+    just after; each round is timed alone (the suboptimality is evaluated
+    on the host after it). Raises unless the counts of ``b_keys`` equal
+    ``launches`` and every other count is 0. Returns ``{name: final x}``
+    and ``{name: counts of b_keys}``."""
+    import torch
+
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.data import quadratic_loss
+    from repro_torch.kernels.scaffold_update import ops
+
+    xs, counts = {}, {}
+    for name, changes, want in runs:
+        sp = dataclasses.replace(spec, **changes)
         tr = FederatedTrainer(quadratic_loss,
                               lambda gen: {"x": torch.ones(ds.dim)}, sp, ds,
                               seed=0, use_fused_update=True, device="cuda")
@@ -486,8 +797,6 @@ def phase_quadratics(result):
         ops.reset_launches()
         secs = []
         for _ in range(rounds):
-            # only the round is timed; the suboptimality is evaluated on
-            # the host after it
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m = tr.run_round()
@@ -495,69 +804,156 @@ def phase_quadratics(result):
             secs.append(time.perf_counter() - t0)
             subs.append(ds.suboptimality(tr.x))
             if sp.use_megakernel and m["megakernel_fallback_reason"] != "":
-                raise AssertionError(f"quad fallback: {m}")
-        got = (ops.LAUNCHES["scaffold_local_loop"],
-               ops.LAUNCHES["scaffold_update"])
-        log(f"quad {name}: launches (local_loop, scaffold_update) = {got}; "
+                raise AssertionError(f"quad {name} fell back: {m}")
+        got = tuple(ops.LAUNCHES[k] for k in b_keys)
+        log(f"quad {name}: launches ({', '.join(b_keys)}) = {got}; "
             f"suboptimality " + " -> ".join(f"{s:.4e}" for s in subs)
             + "; s/round " + ", ".join(f"{s:.4f}" for s in secs)
             + f" (rounds 2-{rounds} mean {statistics.mean(secs[1:]):.4f})")
-        if got != want:
-            raise AssertionError(f"quad {name}: launches {got} != {want}")
-        if name == "megakernel":
-            result["b3_launches"] = got[0]
-        xs[name] = tr.x["x"].cpu()
-    err = rel_err(xs["megakernel"], xs["per_step_fused"])
-    log(f"quad: final x, megakernel vs per-step fused path: rel err "
-        f"{err:.2e} (bound 1e-4)")
-    if not err <= 1e-4:
-        raise AssertionError(f"quad final x rel err {err}")
+        others = sum(v for k, v in ops.LAUNCHES.items() if k not in b_keys)
+        if got != want or others:
+            raise AssertionError(f"quad {name}: launches {ops.LAUNCHES}, "
+                                 f"want {dict(zip(b_keys, want))}")
+        if not all(math.isfinite(v) for v in subs):
+            raise AssertionError(f"quad {name}: suboptimality {subs}")
+        xs[name], counts[name] = tr.x["x"].cpu(), got
+    return xs, counts
 
-    # B3 at d=1024, K=10, bsz=1, in two layouts of A: "fresh", a distinct
-    # A per step (the bound of the kernels line: K*d*d*4 bytes), and
-    # "broadcast", the trainer's own stride-0 view of one client's A
-    # (quadratics.round_batches), which reads 4 MB once and then from L2
+
+def _time_local_loop(ds, beta=None):
+    """B3 (or B4 with ``beta``) at d=1024, K=10, bsz=1, fp32, in two
+    layouts of A: "fresh", a distinct A per step (the bound of the kernels
+    line: K*d*d*4 bytes), and "broadcast", the trainer's own stride-0 view
+    of one client's A (quadratics.round_batches), which reads 4 MB once
+    and then from L2. Kernel and plain version in alternating turns, L2
+    flushed before each call. Returns the fresh layout's numbers."""
     import numpy as np
+    import torch
+
+    from repro_torch.kernels.scaffold_update import megakernel as mk
+    from repro_torch.kernels.scaffold_update import ref
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     d, K = 1024, 10
     y, corr, eta, A, b = _b3_inputs(gen, d, K, 1, torch.float32,
                                     torch.float32)
+    kw = {} if beta is None else dict(
+        m=torch.randn(d, generator=gen, device="cuda"), beta=beta)
     view = ds.round_batches(np.array([0]), K, 1, None, device="cuda")
     layouts = {"fresh": (A, b, K * d * d * 4 + K * d * 4),
                "broadcast": (view["A"][0], view["b"][0], d * d * 4 + d * 4)}
     flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
-    for name, (A, b, a_bytes) in layouts.items():
-        yk, _ = mk.scaffold_local_loop_cuda(y, corr, eta, A, b)
-        yp, _, _ = ref.scaffold_local_loop_ref(y, corr, eta, A, b)
+    name = "scaffold_local_loop" if beta is None else (
+        "scaffold_momentum_local_loop")
+    out = None
+    for layout, (A, b, a_bytes) in layouts.items():
+        yk = mk.scaffold_local_loop_cuda(y, corr, eta, A, b, **kw)[0]
+        yp = ref.scaffold_local_loop_ref(y, corr, eta, A, b, **kw)[0]
         err = float((yk - yp).abs().max())
-        # kernel and plain in turns (plain, kernel, kernel, plain, ...),
-        # L2 flushed before each call; the median of each side, and its
-        # spread across the turns
-        k_all, p_all = [], []
-        for turn in range(6):
-            order = (("plain", "kernel") if turn % 2 == 0
-                     else ("kernel", "plain"))
-            for side in order:
-                if side == "kernel":
-                    k_all.append(cuda_ms(lambda: mk.scaffold_local_loop_cuda(
-                        y, corr, eta, A, b), 5, flush=flush))
-                else:
-                    p_all.append(cuda_ms(lambda: ref.scaffold_local_loop_ref(
-                        y, corr, eta, A, b), 2, flush=flush))
-        k_ms, p_ms = statistics.median(k_all), statistics.median(p_all)
-        # bytes: A and b read once, y and corr read, y_K and the losses
-        # written
-        nbytes = a_bytes + 4 * d * 4 + K * 4
+        k_all, p_all = in_turns(
+            lambda: mk.scaffold_local_loop_cuda(y, corr, eta, A, b, **kw),
+            lambda: ref.scaffold_local_loop_ref(y, corr, eta, A, b, **kw),
+            turns=6, k_iters=5, p_iters=2, flush=flush)
+        # bytes: A and b read once, y and corr (and m) read, y_K (and m_K)
+        # and the losses written
+        nbytes = a_bytes + (4 if beta is None else 6) * d * 4 + K * 4
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"scaffold_local_loop d={d} K={K} bsz=1 fp32, A {name}: kernel "
-            f"{k_ms:.4f} ms (6 turns, {min(k_all):.4f}-{max(k_all):.4f}), "
-            f"plain {p_ms:.4f} ms ({min(p_all):.4f}-{max(p_all):.4f}), bound "
-            f"{bound:.4f} ms (bytes, {nbytes / 1e6:.2f} MB, L2 flushed), "
-            f"max |y_K kernel - plain| {err:.3e}")
-        if name == "fresh":
-            result["b3"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                bound_ms=bound)
+        log(f"{name} d={d} K={K} bsz=1 fp32, A {layout}: kernel "
+            f"{spread(k_all)}, plain {spread(p_all)}, bound {bound:.4f} ms "
+            f"(bytes, {nbytes / 1e6:.2f} MB, L2 flushed), max |y_K kernel - "
+            f"plain| {err:.3e}")
+        if layout == "fresh":
+            out = dict(max_abs_err=err, ms=statistics.median(k_all),
+                       plain_ms=statistics.median(p_all), bound_ms=bound)
+    return out
+
+
+def phase_quadratics(ds, result):
+    """Phase 10: the quadratics slice, K-step kernel vs per-step path."""
+    from repro_torch.configs.base import FedRoundSpec
+
+    spec = FedRoundSpec(algorithm="scaffold", num_clients=20, num_sampled=4,
+                        local_steps=10, local_batch=1, eta_l=0.1)
+    xs, counts = _quad_paths(ds, spec, (
+        ("megakernel", dict(use_megakernel=True), (12, 0)),
+        ("per_step_fused", {}, (0, 120))),
+        ("scaffold_local_loop", "scaffold_update"))
+    err = rel_err(xs["megakernel"], xs["per_step_fused"])
+    log(f"quad: final x, megakernel vs per-step fused path: rel err "
+        f"{err:.2e} (bound 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"quad final x rel err {err}")
+    result["b3_launches"] = counts["megakernel"][0]
+    result["b3"] = _time_local_loop(ds)
+
+
+def phase_quad_heavy_ball(ds, result):
+    """Phase 11: scaffold_m with local heavy-ball, the B4 path vs the
+    per-step B2 path."""
+    from repro_torch.configs.base import FedRoundSpec
+
+    # server momentum 0.9 (scaffold_m's default) at eta_g 0.1, local
+    # momentum 0.9 at eta_l 0.1
+    spec = FedRoundSpec(algorithm="scaffold_m", num_clients=20, num_sampled=4,
+                        local_steps=10, local_batch=1, eta_l=0.1, eta_g=0.1,
+                        local_solver="momentum", local_momentum=0.9)
+    xs, counts = _quad_paths(ds, spec, (
+        ("heavy-ball megakernel", dict(use_megakernel=True), (12, 0)),
+        ("heavy-ball per_step_fused", {}, (0, 120))),
+        ("scaffold_momentum_local_loop", "scaffold_momentum_update"))
+    err = rel_err(xs["heavy-ball megakernel"], xs["heavy-ball per_step_fused"])
+    log(f"quad heavy-ball: final x, B4 path vs per-step B2 path: rel err "
+        f"{err:.2e} (bound 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"quad heavy-ball final x rel err {err}")
+    result["b4_launches"] = counts["heavy-ball megakernel"][0]
+    result["b4"] = _time_local_loop(ds, beta=spec.local_momentum)
+
+
+def phase_quad_sched_adam(ds):
+    """Phase 12: sgd_sched's cosine table through B3 with server adam;
+    local adam and fedprox ask for the K-step kernel and fall back to the
+    per-step path, by the reference's reasons, launching nothing."""
+    import torch
+
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.data import quadratic_loss
+    from repro_torch.kernels.scaffold_update import ops
+
+    spec = FedRoundSpec(algorithm="scaffold", num_clients=20, num_sampled=4,
+                        local_steps=10, local_batch=1, eta_l=0.1,
+                        use_megakernel=True)
+    _quad_paths(ds, spec, (
+        ("sgd_sched cosine, server adam", dict(
+            local_solver="sgd_sched", eta_l_schedule="cosine",
+            server_optimizer="adam", eta_g=0.1), (12,)),),
+        ("scaffold_local_loop",))
+    for name, changes, want in (
+            ("local adam", dict(local_solver="adam", eta_l=0.03),
+             "local solver 'adam' has no megakernel variant"),
+            ("fedprox", dict(algorithm="fedprox"),
+             "FedProx prox term is not expressible in the megakernel")):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tr = FederatedTrainer(quadratic_loss,
+                                  lambda gen: {"x": torch.ones(ds.dim)},
+                                  dataclasses.replace(spec, **changes), ds,
+                                  seed=0, use_fused_update=True,
+                                  device="cuda")
+        subs = [ds.suboptimality(tr.x)]
+        ops.reset_launches()
+        for _ in range(3):
+            m = tr.run_round()
+            subs.append(ds.suboptimality(tr.x))
+        log(f"quad {name}, use_megakernel=True: UserWarning {bool(caught)}, "
+            f"megakernel_fallback_reason {m['megakernel_fallback_reason']!r}"
+            f", launches {dict(ops.LAUNCHES)}; suboptimality "
+            + " -> ".join(f"{s:.4e}" for s in subs))
+        if (not caught or m["megakernel_fallback_reason"] != want
+                or any(ops.LAUNCHES.values())
+                or not all(math.isfinite(v) for v in subs)):
+            raise AssertionError(f"quad {name}: {m}, {ops.LAUNCHES}")
 
 
 def main() -> int:
@@ -577,24 +973,31 @@ def main() -> int:
     smi = phase_environment()
     phase_build()
     phase_b1_plain()
+    phase_b2_plain()
     phase_b3_plain()
+    phase_b4_plain()
     phase_lm_small()
     result = {}
     phase_lm_full(result)
-    phase_quadratics(result)
+    phase_lm_momentum(result)
+    from repro_torch.data import make_similarity_quadratics
+
+    t0 = time.perf_counter()
+    ds = make_similarity_quadratics(20, 1024, delta=0.3, G=8.0, mu=0.3)
+    log(f"quad: 20 clients, d=1024 built in {time.perf_counter() - t0:.1f} s")
+    phase_quadratics(ds, result)
+    phase_quad_heavy_ball(ds, result)
+    phase_quad_sched_adam(ds)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     kernels = [
-        dict(name="scaffold_update", route="cuda",
-             source="src/repro_torch/kernels/scaffold_update/csrc/"
-                    "scaffold_update.cu",
-             replaces=B1_REPLACES, launches=result["b1_launches"],
-             **result["b1"], bound_by="bytes", library_ms=None),
-        dict(name="scaffold_local_loop", route="cuda",
-             source="src/repro_torch/kernels/scaffold_update/csrc/"
-                    "local_loop.cu",
-             replaces=B3_REPLACES, launches=result["b3_launches"],
-             **result["b3"], bound_by="bytes", library_ms=None),
-    ]
+        dict(name=name, route="cuda", source=SOURCES[src], replaces=where,
+             launches=result[f"{key}_launches"], **result[key],
+             bound_by="bytes", library_ms=None)
+        for name, src, where, key in (
+            ("scaffold_update", "update", B1_REPLACES, "b1"),
+            ("scaffold_momentum_update", "update", B2_REPLACES, "b2"),
+            ("scaffold_local_loop", "loop", B3_REPLACES, "b3"),
+            ("scaffold_momentum_local_loop", "loop", B4_REPLACES, "b4"))]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

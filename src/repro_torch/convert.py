@@ -49,10 +49,17 @@ def params_from_jax(tree, device="cuda") -> Dict[str, torch.Tensor]:
 
 
 def state_from_jax(state, device="cuda"):
-    """A JAX ``ServerState`` (its ``x``/``c`` with numpy leaves) -> the
-    port's ``ServerState`` with sgd's empty optimizer slots; any other
-    tree (e.g. client-store rows, leaves ``(N, ...)``) -> a flat dict."""
+    """A JAX ``ServerState`` (numpy leaves) -> the port's ``ServerState``,
+    its server-optimizer slots included (momentum's ``m``; adam's ``m``,
+    ``v`` and ``t``); any other tree (e.g. client-store rows of control
+    variates or solver slots, leaves ``(N, ...)``) -> a flat dict, slot
+    rows keyed ``"m/<leaf>"`` as the port's solver store keys them."""
     if hasattr(state, "x") and hasattr(state, "c"):
-        return ServerState(x=params_from_jax(state.x, device),
-                           c=params_from_jax(state.c, device), opt_state={})
+        dev = resolve_device(device)
+        opt_state = {k: (params_from_jax(v, dev) if isinstance(v, dict)
+                         else _to_tensor(v, dev))
+                     for k, v in state.opt_state.items()}
+        return ServerState(x=params_from_jax(state.x, dev),
+                           c=params_from_jax(state.c, dev),
+                           opt_state=opt_state)
     return params_from_jax(state, device)

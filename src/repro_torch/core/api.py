@@ -4,15 +4,15 @@
   ServerState       the server's model ``x``, control variate ``c`` and
                     server-optimizer slots.
   ClientRoundState  the S sampled clients' round state: control variates
-                    ``c_i`` (leaves ``(S, ...)``, host tensors — the
-                    engine moves one client's rows to the device at a
-                    time), plus optional aggregation weights.
+                    ``c_i`` and the stateful local solvers' slot rows
+                    (leaves ``(S, ...)``, host tensors — the engine moves
+                    one client's rows to the device at a time), plus
+                    optional aggregation weights.
   RoundOutput       new server state, new client state and the metrics.
 
-Registered algorithms: ``scaffold`` (options I and II), ``fedavg`` and
-the large-batch ``sgd`` baseline; server optimizer: ``sgd``. The JAX
-package's other entries (``fedprox``, ``scaffold_m``, ``fedavgm``;
-``momentum``, ``adam``) raise ``NotImplementedError`` when looked up.
+Registered algorithms: ``scaffold`` (options I and II), ``scaffold_m``,
+``fedavg``, ``fedavgm``, ``fedprox`` and the large-batch ``sgd``
+baseline; server optimizers: ``sgd``, ``momentum`` and ``adam``.
 """
 from __future__ import annotations
 
@@ -42,15 +42,22 @@ class ServerState:
 class ClientRoundState:
     """Round-scoped state of the S sampled clients.
 
-    c_i:     control variates, leaves ``(S, ...)``.
-    weights: optional ``(S,)`` aggregation weights.
+    c_i:          control variates, leaves ``(S, ...)``.
+    weights:      optional ``(S,)`` aggregation weights.
+    solver_slots: the slots of a stateful local solver (``momentum``,
+                  ``adam``) as one flat tree of ``(S, ...)`` rows keyed
+                  ``"m/<leaf>"``, ``"v/<leaf>"``, ``"t"``
+                  (``core.tree.tree_flatten_slots``), else None
+                  (``run_round`` then starts every client from
+                  ``solver.init``).
 
-    The reference's ``uplink_residual`` and ``solver_slots`` rows belong
-    to compression and the stateful solvers, not ported yet.
+    The reference's ``uplink_residual`` rows belong to compression, not
+    ported yet.
     """
 
     c_i: Any
     weights: Optional[torch.Tensor] = None
+    solver_slots: Any = None
 
 
 @dataclasses.dataclass
@@ -101,6 +108,16 @@ class FedAvg(Algorithm):
     name = "fedavg"
 
 
+class FedProx(Algorithm):
+    """FedAvg + a proximal term pulling local steps toward the server
+    model (``spec.fedprox_mu``)."""
+
+    name = "fedprox"
+
+    def prox_mu(self, spec) -> float:
+        return spec.fedprox_mu
+
+
 class Scaffold(Algorithm):
     """The paper's Algorithm 1: control-variate-corrected local steps,
     c_i updated by option I or II (``spec.scaffold_option``)."""
@@ -139,8 +156,21 @@ class LargeBatchSGD(Algorithm):
     whole_batch = True
 
 
+class ScaffoldM(Scaffold):
+    """SCAFFOLD with a server heavy-ball step by default."""
+
+    name = "scaffold_m"
+    default_server_optimizer = "momentum"
+
+
+class FedAvgM(FedAvg):
+    """FedAvgM (Hsu et al. 2019): FedAvg + server heavy-ball."""
+
+    name = "fedavgm"
+    default_server_optimizer = "momentum"
+
+
 _ALGORITHMS: Dict[str, Algorithm] = {}
-_NOT_PORTED_ALGORITHMS = ("fedprox", "scaffold_m", "fedavgm")
 
 
 def register_algorithm(algo: Algorithm) -> Algorithm:
@@ -152,8 +182,6 @@ def register_algorithm(algo: Algorithm) -> Algorithm:
 
 def get_algorithm(name: str) -> Algorithm:
     """Look up a registered algorithm; unknown names fail loudly."""
-    if name in _NOT_PORTED_ALGORITHMS:
-        raise NotImplementedError(f"algorithm {name!r}: not ported yet")
     try:
         return _ALGORITHMS[name]
     except KeyError:
@@ -162,11 +190,12 @@ def get_algorithm(name: str) -> Algorithm:
 
 
 def algorithm_names() -> Tuple[str, ...]:
-    """Sorted names of all registered (ported) algorithms."""
+    """Sorted names of all registered algorithms."""
     return tuple(sorted(_ALGORITHMS))
 
 
-for _a in (Scaffold(), FedAvg(), LargeBatchSGD()):
+for _a in (Scaffold(), FedAvg(), FedProx(), LargeBatchSGD(), ScaffoldM(),
+           FedAvgM()):
     register_algorithm(_a)
 
 
@@ -199,8 +228,57 @@ class ServerSGD(ServerOptimizer):
         return x_new, opt_state, dy_mean
 
 
+class ServerMomentum(ServerOptimizer):
+    """Heavy-ball on the aggregated delta (FedAvgM-style):
+    ``m+ = beta*m + dy; x+ = x + eta_g*m+``, beta =
+    ``spec.server_momentum`` (the spec writes 0.9 there for the
+    momentum-default algorithms). ``m`` has x's dtype."""
+
+    name = "momentum"
+
+    def init(self, spec, x):
+        return {"m": tree_zeros_like(x)}
+
+    def apply(self, spec, opt_state, x, dy_mean):
+        beta = spec.server_momentum
+        m_new = tree_map(lambda m, d: (beta * m + d).to(m.dtype),
+                         opt_state["m"], dy_mean)
+        x_new = tree_map(lambda xx, d: (xx + spec.eta_g * d).to(xx.dtype),
+                         x, m_new)
+        return x_new, {"m": m_new}, m_new
+
+
+class ServerAdam(ServerOptimizer):
+    """FedAdam (Reddi et al. 2021): Adam on the pseudo-gradient
+    ``dy_mean``, fp32 moments and an int32 step counter."""
+
+    name = "adam"
+
+    def init(self, spec, x):
+        f32 = lambda a: torch.zeros(a.shape, dtype=torch.float32,  # noqa: E731
+                                    device=a.device)
+        dev = next(iter(x.values())).device
+        return {"m": tree_map(f32, x), "v": tree_map(f32, x),
+                "t": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def apply(self, spec, opt_state, x, dy_mean):
+        b1, b2, eps = spec.server_beta1, spec.server_beta2, spec.server_eps
+        t = opt_state["t"] + 1
+        m_new = tree_map(lambda m, d: b1 * m + (1.0 - b1) * d.float(),
+                         opt_state["m"], dy_mean)
+        v_new = tree_map(
+            lambda v, d: b2 * v + (1.0 - b2) * d.float().square(),
+            opt_state["v"], dy_mean)
+        bc1 = 1.0 - b1 ** t.float()
+        bc2 = 1.0 - b2 ** t.float()
+        step = tree_map(lambda m, v: (m / bc1) / (torch.sqrt(v / bc2) + eps),
+                        m_new, v_new)
+        x_new = tree_map(lambda xx, d: (xx + spec.eta_g * d).to(xx.dtype),
+                         x, step)
+        return x_new, {"m": m_new, "v": v_new, "t": t}, step
+
+
 _SERVER_OPTIMIZERS: Dict[str, ServerOptimizer] = {}
-_NOT_PORTED_SERVER_OPTIMIZERS = ("momentum", "adam")
 
 
 def register_server_optimizer(opt: ServerOptimizer) -> ServerOptimizer:
@@ -212,9 +290,6 @@ def register_server_optimizer(opt: ServerOptimizer) -> ServerOptimizer:
 
 def get_server_optimizer(name: str) -> ServerOptimizer:
     """Look up a registered server optimizer; unknown names fail loudly."""
-    if name in _NOT_PORTED_SERVER_OPTIMIZERS:
-        raise NotImplementedError(f"server optimizer {name!r}: not ported "
-                                  f"yet")
     try:
         return _SERVER_OPTIMIZERS[name]
     except KeyError:
@@ -223,11 +298,12 @@ def get_server_optimizer(name: str) -> ServerOptimizer:
 
 
 def server_optimizer_names() -> Tuple[str, ...]:
-    """Sorted names of all registered (ported) server optimizers."""
+    """Sorted names of all registered server optimizers."""
     return tuple(sorted(_SERVER_OPTIMIZERS))
 
 
-register_server_optimizer(ServerSGD())
+for _o in (ServerSGD(), ServerMomentum(), ServerAdam()):
+    register_server_optimizer(_o)
 
 
 def resolve_server_optimizer(spec) -> str:

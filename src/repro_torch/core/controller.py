@@ -1,13 +1,15 @@
 """Host-side federated training controller (the JAX package's
 ``core/controller.py``), synchronous mode.
 
-``FederatedTrainer`` owns the ``ServerState`` (x, c) on its device, the
-N-client host store of control variates (the paper's stateful clients),
-the cohort sampler and the data stream. Each round samples, gathers,
-loads, runs ``core.rounds.run_round`` and scatters, strictly in order —
-the reference's ``pipeline_depth=0`` loop, with the same host RNG streams
-(``ClientSampler(seed)``, data from ``np.random.default_rng(seed + 1)``),
-so both packages draw the same cohorts and batches.
+``FederatedTrainer`` owns the ``ServerState`` (x, c and the server
+optimizer's slots) on its device, the N-client host stores of control
+variates (the paper's stateful clients) and, for a stateful local
+solver, of its slots, the cohort sampler and the data stream. Each
+round samples, gathers, loads, runs ``core.rounds.run_round`` and
+scatters, strictly in order — the reference's ``pipeline_depth=0``
+loop, with the same host RNG streams (``ClientSampler(seed)``, data from
+``np.random.default_rng(seed + 1)``), so both packages draw the same
+cohorts and batches.
 
 The pipelined, scanned, tiered and async modes are not ported yet and
 raise ``NotImplementedError``.
@@ -34,6 +36,7 @@ from repro_torch.core.local_solver import (
 from repro_torch.core.rounds import check_ported, round_comm_bytes, run_round
 from repro_torch.core.sampling import ClientSampler
 from repro_torch.core.store import ClientStateStore
+from repro_torch.core.tree import tree_flatten_slots
 from repro_torch.device import resolve_device
 
 
@@ -60,9 +63,9 @@ def make_grad_fn(loss_fn: Callable) -> Callable:
 
 
 class FederatedTrainer:
-    """Runs the ported federated algorithms (scaffold / fedavg / sgd)
-    against a federated dataset whose ``round_batches(ids, K, b, rng,
-    device=...)`` returns a dict with leaves (S, K, b, ...).
+    """Runs the ported federated algorithms against a federated dataset
+    whose ``round_batches(ids, K, b, rng, device=...)`` returns a dict
+    with leaves (S, K, b, ...).
 
     ``init_params(generator)`` builds the initial model from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (a callable
@@ -102,6 +105,17 @@ class FederatedTrainer:
         self.store = ClientStateStore(self.server.x, spec.num_clients,
                                       backend=store_backend)
         self.local_solver = get_local_solver(resolve_local_solver(spec))
+        # a stateful local solver's slots persist per client across
+        # rounds: one more host row family, zeros for clients never
+        # sampled (the template is built on the meta device: only its
+        # shapes and dtypes are read)
+        self.solver_store = None
+        if self.local_solver.stateful:
+            meta = {k: torch.empty_like(v, device="meta")
+                    for k, v in self.server.x.items()}
+            self.solver_store = ClientStateStore(
+                tree_flatten_slots(self.local_solver.init(spec, meta)),
+                spec.num_clients, backend=store_backend)
         self.sampler = ClientSampler(spec.num_clients, spec.num_sampled, seed)
         self._rng = np.random.default_rng(seed + 1)
         self._comm_bytes = {
@@ -159,6 +173,8 @@ class FederatedTrainer:
         round's metrics (also appended to ``history``)."""
         ids = self.sampler.sample()
         c_i = self.store.gather(ids)
+        slots = (None if self.solver_store is None
+                 else self.solver_store.gather(ids))
         weights = None
         if self.spec.weighted_aggregation:
             weights = torch.as_tensor(
@@ -167,12 +183,15 @@ class FederatedTrainer:
             ids, self.spec.local_steps, self.spec.local_batch, self._rng,
             device=self.device)
         out = run_round(self._grad_fn, self.spec, self.server,
-                        ClientRoundState(c_i=c_i, weights=weights), batches,
+                        ClientRoundState(c_i=c_i, weights=weights,
+                                         solver_slots=slots), batches,
                         use_fused_update=self._use_fused_update)
-        del batches, c_i
+        del batches, c_i, slots
         self.server = out.server
         if self.algorithm.stateful_clients:
             self.store.scatter(ids, out.clients.c_i)
+        if self.solver_store is not None:
+            self.solver_store.scatter(ids, out.clients.solver_slots)
         self.round_idx += 1
         m = {k: float(v) for k, v in out.metrics.items()}
         m.update(self._comm_bytes)
@@ -200,5 +219,7 @@ class FederatedTrainer:
         return rounds
 
     def close(self) -> None:
-        """Release the host store."""
+        """Release the host stores."""
         self.store.close()
+        if self.solver_store is not None:
+            self.solver_store.close()

@@ -11,11 +11,12 @@ differs is the aggregation, which follows the reference exactly:
   client_sequential a running weighted sum in the model's dtype (the
                     reference's scan carry), drift = ||mean dy||.
 
-Each client's ``c_i`` rows move to the model's device only while that
-client runs, and its new rows go straight back to host memory, so the
-device holds one client's state at a time. Compression, privatization
-and non-``full`` update spaces are not ported yet: a spec that asks for
-them raises ``NotImplementedError``.
+Each client's ``c_i`` and solver-slot rows move to the model's device
+only while that client runs, and its new rows go straight back over its
+input rows, so the device holds one client's state at a time and the
+host one copy of the cohort's. Compression, privatization and
+non-``full`` update spaces are not ported yet: a spec that asks for them
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,7 +38,13 @@ from repro_torch.core.local_solver import (
     resolve_local_solver,
     run_local_steps,
 )
-from repro_torch.core.tree import tree_map, tree_norm, tree_sub
+from repro_torch.core.tree import (
+    tree_flatten_slots,
+    tree_map,
+    tree_nest_slots,
+    tree_norm,
+    tree_sub,
+)
 
 # fp32 temporaries of the accumulations are made this many elements at a
 # time, so a bf16 leaf never needs a whole fp32 copy beside it
@@ -146,12 +153,18 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
 
     server:  ``ServerState`` on the model's device.
     clients: ``ClientRoundState`` — c_i with leaves (S, ...) (host or
-             device), optional (S,) aggregation weights.
+             device), the stateful local solver's slot rows (flat, leaves
+             (S, ...), or None for fresh slots), optional (S,)
+             aggregation weights.
     batches: dict with leaves (S, K, b, ...) on the model's device.
 
-    Returns the new ``ServerState``, the new client state (c_i rows in
-    the input's placement) and the metrics: ``loss``, ``drift``,
-    ``update_norm`` (0-d tensors) and ``bytes_up``/``bytes_down`` (ints).
+    The client rows are the round's to update: each client's new c_i and
+    slot rows are written over its input rows (the host then holds one
+    copy of the cohort's state, not two). Returns the new
+    ``ServerState``, the new client state (those rows; slot rows only for
+    a stateful solver, fresh ones in c_i's placement when none came in)
+    and the metrics: ``loss``, ``drift``, ``update_norm`` (0-d tensors)
+    and ``bytes_up``/``bytes_down`` (ints).
     """
     check_ported(spec)
     algo = get_algorithm(spec.algorithm)
@@ -162,7 +175,9 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
     dev = next(iter(x.values())).device
     s = spec.num_sampled
     c_i_all, weights = clients.c_i, clients.weights
-    c_i_new_all = {k: torch.empty_like(v) for k, v in c_i_all.items()}
+    stateful_solver = get_local_solver(resolve_local_solver(spec)).stateful
+    slots_all = clients.solver_slots if stateful_solver else None
+    fresh_slots = slots_all is None  # every client starts from solver.init
     if weights is not None:
         wnorm = weights.float()
         wnorm = (wnorm / torch.clamp(wnorm.sum(), min=1e-12)).tolist()
@@ -185,14 +200,28 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
     losses = []
     for i in range(s):
         c_i = {k: v[i].to(dev, non_blocking=True) for k, v in c_i_all.items()}
+        slots_i = (None if fresh_slots else tree_nest_slots(
+            {k: v[i].to(dev, copy=True) for k, v in slots_all.items()}))
         batch_i = {k: v[i] for k, v in batches.items()}
-        dy, dc, c_i_new, _, loss = client_update(
-            grad_fn, spec, x, c, c_i, batch_i,
+        dy, dc, c_i_new, slots_new, loss = client_update(
+            grad_fn, spec, x, c, c_i, batch_i, solver_slots=slots_i,
             use_fused_update=use_fused_update)
-        del c_i
-        for k, v in c_i_new.items():
-            c_i_new_all[k][i].copy_(v)
+        del c_i, slots_i
+        if algo.stateful_clients:
+            for k, v in c_i_new.items():
+                c_i_all[k][i].copy_(v)
         del c_i_new
+        if stateful_solver:
+            flat = tree_flatten_slots(slots_new)
+            if slots_all is None:
+                place = next(iter(c_i_all.values())).device
+                slots_all = {k: torch.empty((s,) + tuple(v.shape),
+                                            dtype=v.dtype, device=place)
+                             for k, v in flat.items()}
+            for k, v in flat.items():
+                slots_all[k][i].copy_(v)
+            del flat
+        del slots_new
         if parallel:
             norms.append(tree_norm(dy))
         _accumulate(dy_acc, w_seq[i], dy)
@@ -223,6 +252,7 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
     }
     return RoundOutput(
         server=ServerState(x=x_new, c=c_new, opt_state=opt_state_new),
-        clients=ClientRoundState(c_i=c_i_new_all, weights=weights),
+        clients=ClientRoundState(c_i=c_i_all, weights=weights,
+                                 solver_slots=slots_all),
         metrics=metrics,
     )

@@ -1,11 +1,14 @@
 """The population client store over the dense host backend (the JAX
 package's ``core/store.py``: ``ClientStateStore``).
 
-One instance holds one per-client state tree (the control variates
-``c_i``) for all N clients as ``(N, ...)`` tensors in host memory, zeros
-for clients never sampled. The cohort is gathered before a round and
-scattered back after it. The other backends (``memmap``, ``sharded``)
-and the tiered store are not ported yet.
+One instance holds one per-client state tree for all N clients as
+``(N, ...)`` tensors in host memory, zeros for clients never sampled:
+the control variates ``c_i``, or a stateful local solver's slots as one
+flat row family (``core.tree.tree_flatten_slots``: fp32 ``"m/<leaf>"``
+and ``"v/<leaf>"`` rows, and adam's step counter as an ``(N,)`` int32
+row ``"t"``). The cohort is gathered before a round and scattered back
+after it. The other backends (``memmap``, ``sharded``) and the tiered
+store are not ported yet.
 """
 from __future__ import annotations
 
@@ -40,6 +43,12 @@ class ClientStateStore:
     def scatter(self, ids: np.ndarray, new) -> None:
         """Write rows ``ids`` (values are copied in, from any device)."""
         tree_scatter(self._rows, np.asarray(ids), new)
+
+    @property
+    def rows(self):
+        """The ``(N, ...)`` host tensors themselves, not copied: read them,
+        write through :meth:`scatter`."""
+        return self._rows
 
     @property
     def population_nbytes(self) -> int:

@@ -68,3 +68,29 @@ def tree_scatter(store: Tree, ids, new: Tree) -> Tree:
     for k, leaf in store.items():
         leaf[idx.to(leaf.device)] = new[k].to(leaf.device, leaf.dtype)
     return store
+
+
+def tree_flatten_slots(slots) -> Tree:
+    """A local solver's nested slots -> one flat tree: ``{"m": {"x": a},
+    "t": t}`` -> ``{"m/x": a, "t": t}`` (the JAX slot pytree's leaf
+    paths), the layout of the client store's rows."""
+    flat: Tree = {}
+    for name, sub in slots.items():
+        if isinstance(sub, dict):
+            flat.update({f"{name}/{k}": v for k, v in sub.items()})
+        else:
+            flat[name] = sub
+    return flat
+
+
+def tree_nest_slots(flat: Tree):
+    """The inverse of :func:`tree_flatten_slots`: split each key at its
+    first ``/``."""
+    slots = {}
+    for key, v in flat.items():
+        name, sep, leaf = key.partition("/")
+        if sep:
+            slots.setdefault(name, {})[leaf] = v
+        else:
+            slots[name] = v
+    return slots

@@ -4,29 +4,35 @@
 //     Am = mean_b A[k, b]        bm = mean_b b[k, b]
 //     loss[k] = 0.5 * y.(Am y) + bm.y                (pre-update y)
 //     g = 0.5 * (Am y + Am^T y) + bm + corr
-//     y <- round_to_dtype(y - eta[k] * g)
+//     B3 (sgd, sgd_sched):  y <- round_to_dtype(y - eta[k] * g)
+//     B4 (heavy ball):      m <- beta * m + g
+//                           y <- round_to_dtype(y - eta[k] * m)
 //
-// Replaces the TPU kernel src/repro/kernels/scaffold_update/megakernel.py:
-// scaffold_local_loop_2d (bodies _local_loop_kernel and _grad_terms).
+// Replaces the TPU kernels src/repro/kernels/scaffold_update/megakernel.py:
+// scaffold_local_loop_2d (bodies _local_loop_kernel and _grad_terms) and
+// scaffold_momentum_local_loop_2d (body _momentum_loop_kernel), whose
+// fp32 slot m stays on chip for all K steps and comes back as m_K.
 //
 // Bound on the H100: bytes. Every step streams its bsz (d, d) matrices
 // once and does 2 flops per element read per output (Am y and Am^T y), so
-// the least time is K * bsz * d^2 * bytes(A) / 3.35 TB/s.
+// the least time is K * bsz * d^2 * bytes(A) / 3.35 TB/s; the slot adds
+// 8 bytes an element of y, read once and written once.
 //
 // Design: step k+1 needs all of y_k, and blocks of a grid carry nothing
 // from one grid step to the next, so the K loop runs inside one thread
-// block. y (as fp32 values of its own dtype) and corr sit in shared
-// memory for all K steps; A_k streams from device memory in coalesced row
-// segments. One pass over A_k yields both Am y and Am^T y, so the
-// symmetrised matrix is never formed: a warp owns rows i = warp, warp+W,
-// ..., its lanes own the columns of a 32*R-wide column tile. Row sums
-// (Am y) reduce across lanes and add up tile by tile in a fixed order;
-// column sums (Am^T y) stay in registers over the warp's rows and reduce
-// across warps in a fixed order through shared memory. No atomics, so a
-// run is deterministic. One block is far from the bound at d = 1024 (one
-// SM's share of the memory bandwidth); a cluster- or grid-wide version is
-// later work. A and b may be broadcast views: the K and bsz dimensions
-// take any element stride, the (d, d) and (d,) inner blocks are dense.
+// block. y (as fp32 values of its own dtype), corr and the slot m sit in
+// shared memory for all K steps; A_k streams from device memory in
+// coalesced row segments. One pass over A_k yields both Am y and Am^T y,
+// so the symmetrised matrix is never formed: a warp owns rows i = warp,
+// warp+W, ..., its lanes own the columns of a 32*R-wide column tile. Row
+// sums (Am y) reduce across lanes and add up tile by tile in a fixed
+// order; column sums (Am^T y) stay in registers over the warp's rows and
+// reduce across warps in a fixed order through shared memory. No
+// atomics, so a run is deterministic. One block is far from the bound at
+// d = 1024 (one SM's share of the memory bandwidth); a cluster- or
+// grid-wide version is later work. A and b may be broadcast views: the K
+// and bsz dimensions take any element stride, the (d, d) and (d,) inner
+// blocks are dense.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -65,12 +71,14 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-template <typename TY, typename TC, typename TA, typename TB>
+template <bool kMom, typename TY, typename TC, typename TA, typename TB>
 __global__ void __launch_bounds__(kThreads, 1)
 local_loop_kernel(const TY* __restrict__ y0, const TC* __restrict__ corr,
+                  const float* __restrict__ m0,
                   const TA* __restrict__ A, long long a_sk, long long a_sb,
                   const TB* __restrict__ b, long long b_sk, long long b_sb,
-                  const float* __restrict__ eta, TY* __restrict__ y_out,
+                  const float* __restrict__ eta, float beta,
+                  TY* __restrict__ y_out, float* __restrict__ m_out,
                   float* __restrict__ losses, int K, int bsz, int d) {
   extern __shared__ float smem[];
   float* ys = smem;              // d: current y, fp32 values of TY
@@ -79,12 +87,14 @@ local_loop_kernel(const TY* __restrict__ y0, const TC* __restrict__ corr,
   float* v = u + d;              // d: Am^T y
   float* wv = v + d;             // kWarps * kTile: per-warp column sums
   float* red = wv + kWarps * kTile;  // kWarps
+  float* ms = red + kWarps;      // d, B4 only: the heavy-ball slot
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float inv_b = 1.0f / (float)bsz;
 
   for (int j = threadIdx.x; j < d; j += kThreads) {
     ys[j] = to_f(y0[j]);
     cs[j] = corr ? to_f(corr[j]) : 0.f;
+    if (kMom) ms[j] = m0[j];
   }
   __syncthreads();
 
@@ -174,86 +184,87 @@ local_loop_kernel(const TY* __restrict__ y0, const TC* __restrict__ corr,
       quad = fmaf(u[j], yj, quad);
       lin = fmaf(bm, yj, lin);
       const float g = 0.5f * (u[j] + v[j]) + bm + cs[j];
-      ys[j] = to_f(from_f<TY>(yj - e * g));
+      if (kMom) {
+        const float mj = beta * ms[j] + g;
+        ms[j] = mj;
+        ys[j] = to_f(from_f<TY>(yj - e * mj));
+      } else {
+        ys[j] = to_f(from_f<TY>(yj - e * g));
+      }
     }
     quad = block_sum(quad, red);
     lin = block_sum(lin, red);
     if (threadIdx.x == 0) losses[k] = 0.5f * quad + lin;
     __syncthreads();
   }
-  for (int j = threadIdx.x; j < d; j += kThreads) y_out[j] = from_f<TY>(ys[j]);
+  for (int j = threadIdx.x; j < d; j += kThreads) {
+    y_out[j] = from_f<TY>(ys[j]);
+    if (kMom) m_out[j] = ms[j];
+  }
 }
 
-template <typename TY, typename TC, typename TA, typename TB>
-int launch(const void* y0, const void* corr, const void* A, long long a_sk,
-           long long a_sb, const void* b, long long b_sk, long long b_sb,
-           const void* eta, void* y_out, void* losses, int K, int bsz, int d,
-           size_t smem, cudaStream_t s) {
-  auto kern = local_loop_kernel<TY, TC, TA, TB>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<1, kThreads, smem, s>>>(
-      static_cast<const TY*>(y0), static_cast<const TC*>(corr),
-      static_cast<const TA*>(A), a_sk, a_sb, static_cast<const TB*>(b), b_sk,
-      b_sb, static_cast<const float*>(eta), static_cast<TY*>(y_out),
-      static_cast<float*>(losses), K, bsz, d);
-  return 0;
-}
+template <typename T> struct Tag { using type = T; };
 
-template <typename TY, typename TC, typename TA>
-int pick_b(int tb, const void* y0, const void* corr, const void* A,
-           long long a_sk, long long a_sb, const void* b, long long b_sk,
-           long long b_sb, const void* eta, void* y_out, void* losses, int K,
-           int bsz, int d, size_t smem, cudaStream_t s) {
-  return tb == 0 ? launch<TY, TC, TA, float>(y0, corr, A, a_sk, a_sb, b, b_sk, b_sb, eta, y_out, losses, K, bsz, d, smem, s)
-                 : launch<TY, TC, TA, __nv_bfloat16>(y0, corr, A, a_sk, a_sb, b, b_sk, b_sb, eta, y_out, losses, K, bsz, d, smem, s);
-}
-
-template <typename TY, typename TC>
-int pick_a(int ta, int tb, const void* y0, const void* corr, const void* A,
-           long long a_sk, long long a_sb, const void* b, long long b_sk,
-           long long b_sb, const void* eta, void* y_out, void* losses, int K,
-           int bsz, int d, size_t smem, cudaStream_t s) {
-  return ta == 0 ? pick_b<TY, TC, float>(tb, y0, corr, A, a_sk, a_sb, b, b_sk, b_sb, eta, y_out, losses, K, bsz, d, smem, s)
-                 : pick_b<TY, TC, __nv_bfloat16>(tb, y0, corr, A, a_sk, a_sb, b, b_sk, b_sb, eta, y_out, losses, K, bsz, d, smem, s);
-}
-
-template <typename TY>
-int pick_c(int tc, int ta, int tb, const void* y0, const void* corr,
-           const void* A, long long a_sk, long long a_sb, const void* b,
-           long long b_sk, long long b_sb, const void* eta, void* y_out,
-           void* losses, int K, int bsz, int d, size_t smem, cudaStream_t s) {
-  return tc == 0 ? pick_a<TY, float>(ta, tb, y0, corr, A, a_sk, a_sb, b, b_sk, b_sb, eta, y_out, losses, K, bsz, d, smem, s)
-                 : pick_a<TY, __nv_bfloat16>(ta, tb, y0, corr, A, a_sk, a_sb, b, b_sk, b_sb, eta, y_out, losses, K, bsz, d, smem, s);
+// f(Tag<float>{}) for dtype code 0, f(Tag<__nv_bfloat16>{}) for 1
+template <typename F> void with_dtype(int code, F f) {
+  if (code == 0) f(Tag<float>{});
+  else f(Tag<__nv_bfloat16>{});
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory one launch at width d needs.
-extern "C" long long local_loop_smem_bytes(int d) {
-  return (long long)(4LL * d + (long long)kWarps * kTile + kWarps) * 4LL;
+// Bytes of dynamic shared memory one launch at width d needs; mom != 0
+// for the heavy-ball loop (B4), which keeps its slot there too.
+extern "C" long long local_loop_smem_bytes(int d, int mom) {
+  return (long long)((mom ? 5LL : 4LL) * d + (long long)kWarps * kTile + kWarps) * 4LL;
 }
 
 // The K-step loop for one client. Dtype codes: 0 fp32, 1 bf16, for y (and
-// y_out), corr, A and b. corr may be null (no correction). a_sk/a_sb and
-// b_sk/b_sb are the element strides of the K and bsz dimensions of A
-// (K, bsz, d, d) and b (K, bsz, d). eta: (K,) fp32 on the device; losses:
-// (K,) fp32 out. Returns cudaGetLastError() after the launch, or the error
-// of the shared-memory attribute call that refused the width.
+// y_out), corr, A and b. corr may be null (no correction). m0 and m_out:
+// (d,) fp32 slot in and out for the heavy-ball loop (B4), or both null
+// (B3; beta unused). a_sk/a_sb and b_sk/b_sb are the element strides of
+// the K and bsz dimensions of A (K, bsz, d, d) and b (K, bsz, d). eta:
+// (K,) fp32 on the device; losses: (K,) fp32 out. Returns
+// cudaGetLastError() after the launch, or the error of the shared-memory
+// attribute call that refused the width.
 extern "C" int local_loop(int ty, int tc, int ta, int tb, const void* y0,
-                          const void* corr, const void* A, long long a_sk,
-                          long long a_sb, const void* b, long long b_sk,
-                          long long b_sb, const void* eta, void* y_out,
-                          void* losses, int K, int bsz, int d, void* stream) {
+                          const void* corr, const void* m0, const void* A,
+                          long long a_sk, long long a_sb, const void* b,
+                          long long b_sk, long long b_sb, const void* eta,
+                          float beta, void* y_out, void* m_out, void* losses,
+                          int K, int bsz, int d, void* stream) {
   if (ty < 0 || ty > 1 || tc < 0 || tc > 1 || ta < 0 || ta > 1 || tb < 0 ||
-      tb > 1 || K < 1 || bsz < 1 || d < 1)
+      tb > 1 || K < 1 || bsz < 1 || d < 1 ||
+      (m0 == nullptr) != (m_out == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)local_loop_smem_bytes(d);
+  const bool mom = m0 != nullptr;
+  const size_t smem = (size_t)local_loop_smem_bytes(d, mom);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = ty == 0
-      ? pick_c<float>(tc, ta, tb, y0, corr, A, a_sk, a_sb, b, b_sk, b_sb, eta, y_out, losses, K, bsz, d, smem, s)
-      : pick_c<__nv_bfloat16>(tc, ta, tb, y0, corr, A, a_sk, a_sb, b, b_sk, b_sb, eta, y_out, losses, K, bsz, d, smem, s);
-  if (err != 0) return err;
+  cudaError_t err = cudaSuccess;
+  with_dtype(ty, [&](auto y_tag) {
+    with_dtype(tc, [&](auto c_tag) {
+      with_dtype(ta, [&](auto a_tag) {
+        with_dtype(tb, [&](auto b_tag) {
+          using TY = typename decltype(y_tag)::type;
+          using TC = typename decltype(c_tag)::type;
+          using TA = typename decltype(a_tag)::type;
+          using TB = typename decltype(b_tag)::type;
+          auto kern = mom ? local_loop_kernel<true, TY, TC, TA, TB>
+                          : local_loop_kernel<false, TY, TC, TA, TB>;
+          err = cudaFuncSetAttribute(
+              kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          if (err != cudaSuccess) return;
+          kern<<<1, kThreads, smem, s>>>(
+              static_cast<const TY*>(y0), static_cast<const TC*>(corr),
+              static_cast<const float*>(m0), static_cast<const TA*>(A), a_sk,
+              a_sb, static_cast<const TB*>(b), b_sk, b_sb,
+              static_cast<const float*>(eta), beta, static_cast<TY*>(y_out),
+              static_cast<float*>(m_out), static_cast<float*>(losses), K, bsz,
+              d);
+        });
+      });
+    });
+  });
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,16 +1,20 @@
-"""Wrapper of the K-step local-loop kernel (``csrc/local_loop.cu``).
+"""Wrapper of the K-step local-loop kernels (``csrc/local_loop.cu``).
 
-``scaffold_local_loop`` runs all K corrected sgd steps of one client on
-the quadratics substrate in one launch: the gradient
+``scaffold_local_loop`` runs all K corrected steps of one client on the
+quadratics substrate in one launch: the gradient
 ``sym(mean_b A_k) y + mean_b b_k`` is computed inside the kernel, the
 ``c - c_i`` correction and the step follow, and the per-step losses come
-back as a ``(K,)`` fp32 tensor. The JAX package's
-``kernels/scaffold_update/megakernel.py`` is the reference.
+back as a ``(K,)`` fp32 tensor. The sgd step (also ``sgd_sched``'s, by
+its eta table) is kernel B3; with an fp32 slot ``m`` the heavy-ball step
+``m <- beta*m + g; y <- y - eta_k*m`` is kernel B4, which returns
+``m_K``. The JAX package's ``kernels/scaffold_update/megakernel.py`` is
+the reference.
 
 For tensors on the CPU it runs the plain version
 (``ref.scaffold_local_loop_ref``, also the CPU fast path of
 ``run_local_steps``); for CUDA tensors it launches the kernel or raises.
-Launches count in ``ops.LAUNCHES["scaffold_local_loop"]``.
+Launches count in ``ops.LAUNCHES["scaffold_local_loop"]`` (B3) and
+``ops.LAUNCHES["scaffold_momentum_local_loop"]`` (B4).
 """
 from __future__ import annotations
 
@@ -32,22 +36,25 @@ def _lib():
     fn = lib.local_loop
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
                        + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
+                       + [ctypes.c_void_p] + [ctypes.c_float]
                        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.local_loop_smem_bytes.argtypes = [ctypes.c_int]
+        lib.local_loop_smem_bytes.argtypes = [ctypes.c_int] * 2
         lib.local_loop_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def scaffold_local_loop_cuda(y, corr, eta_table, A, b):
-    """One kernel launch: ``(y_K, losses)`` for 1-D ``y``/``corr`` (corr
-    may be None), ``A (K, bsz, d, d)``, ``b (K, bsz, d)`` and a ``(K,)``
-    eta table, all on one CUDA device. The K and bsz dimensions of A and b
-    may be strided (broadcast views take no copy); their inner blocks must
-    be dense."""
+def scaffold_local_loop_cuda(y, corr, eta_table, A, b, *, m=None,
+                             beta: float = 0.0):
+    """One kernel launch: ``(y_K, m_K | None, losses)`` for 1-D
+    ``y``/``corr`` (corr may be None), ``A (K, bsz, d, d)``, ``b (K, bsz,
+    d)`` and a ``(K,)`` eta table, all on one CUDA device; B4 with the
+    ``(d,)`` fp32 slot ``m`` and ``beta``, B3 without. The K and bsz
+    dimensions of A and b may be strided (broadcast views take no copy);
+    their inner blocks must be dense."""
     K, bsz, d = A.shape[0], A.shape[1], A.shape[2]
     if y.dim() != 1 or y.shape[0] != d:
         raise ValueError(f"scaffold_local_loop: y shape {tuple(y.shape)}, "
@@ -74,8 +81,12 @@ def scaffold_local_loop_cuda(y, corr, eta_table, A, b):
                             f"not in {list(DTYPE_CODES)}")
     if not y.is_contiguous():
         raise ValueError("scaffold_local_loop: y is not contiguous")
+    if m is not None and (m.shape != y.shape or m.dtype != torch.float32
+                          or m.device != y.device or not m.is_contiguous()):
+        raise ValueError("scaffold_local_loop: the slot m must be a dense "
+                         "fp32 vector shaped like y, on y's device")
     lib = _lib()
-    smem = lib.local_loop_smem_bytes(d)
+    smem = lib.local_loop_smem_bytes(d, m is not None)
     if smem > SMEM_LIMIT:
         raise ValueError(f"scaffold_local_loop: d={d} needs {smem} B of "
                          f"shared memory, more than {SMEM_LIMIT}")
@@ -85,21 +96,25 @@ def scaffold_local_loop_cuda(y, corr, eta_table, A, b):
         raise ValueError(f"scaffold_local_loop: eta table {tuple(eta.shape)}"
                          f" for K={K}")
     y_out = torch.empty_like(y)
+    m_out = None if m is None else torch.empty_like(m)
     losses = torch.empty(K, dtype=torch.float32, device=y.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.local_loop(
             DTYPE_CODES[y.dtype],
             DTYPE_CODES[corr.dtype] if corr is not None else 0,
             DTYPE_CODES[A.dtype], DTYPE_CODES[b.dtype],
-            y.data_ptr(), corr.data_ptr() if corr is not None else None,
+            y.data_ptr(), ptr(corr), ptr(m),
             A.data_ptr(), A.stride(0), A.stride(1),
             b.data_ptr(), b.stride(0), b.stride(1),
-            eta.data_ptr(), y_out.data_ptr(), losses.data_ptr(),
-            K, bsz, d, stream)
-    build.check(err, "scaffold_local_loop")
-    LAUNCHES["scaffold_local_loop"] += 1
-    return y_out, losses
+            eta.data_ptr(), float(beta), y_out.data_ptr(), ptr(m_out),
+            losses.data_ptr(), K, bsz, d, stream)
+    name = ("scaffold_local_loop" if m is None
+            else "scaffold_momentum_local_loop")
+    build.check(err, name)
+    LAUNCHES[name] += 1
+    return y_out, m_out, losses
 
 
 def scaffold_local_loop(y, correction, batches, eta_table, *, m=None,
@@ -111,8 +126,7 @@ def scaffold_local_loop(y, correction, batches, eta_table, *, m=None,
     dict or None; ``batches`` is ``{"A": (K, bsz, d, d), "b": (K, bsz,
     d)}``; ``eta_table`` is the ``(K,)`` per-step learning rate. Pass
     ``m`` (a like-keyed fp32 dict) and ``beta`` for the heavy-ball
-    variant, whose kernel is not ported yet (plain version on the CPU
-    only). Returns ``(y_K, m_K | None, losses (K,))``.
+    variant (B4). Returns ``(y_K, m_K | None, losses (K,))``.
     """
     dev = resolve_device(device)
     ((key, x),) = y.items()
@@ -126,11 +140,7 @@ def scaffold_local_loop(y, correction, batches, eta_table, *, m=None,
     if dev.type == "cpu":
         y_out, m_out, losses = ref.scaffold_local_loop_ref(
             x, corr, eta_table, A, bvec, m=m_leaf, beta=beta)
-    elif m_leaf is not None:
-        raise NotImplementedError(
-            "the heavy-ball local-loop kernel (megakernel.py:"
-            "scaffold_momentum_local_loop_2d) is not ported yet")
     else:
-        y_out, losses = scaffold_local_loop_cuda(x, corr, eta_table, A, bvec)
-        m_out = None
+        y_out, m_out, losses = scaffold_local_loop_cuda(
+            x, corr, eta_table, A, bvec, m=m_leaf, beta=beta)
     return ({key: y_out}, None if m_out is None else {key: m_out}, losses)

@@ -16,6 +16,25 @@ def scaffold_update_ref(y, g, corr, eta: float):
     return out.to(y.dtype)
 
 
+def scaffold_momentum_update_ref(y, g, corr, m, eta: float, beta: float):
+    """Fused heavy-ball step (the ``momentum`` local solver's):
+    ``m' = beta*m + (g + corr)``, ``y' = y - eta*m'``, fp32 accumulation,
+    one rounding at the casts back to the operand dtypes."""
+    m_new = beta * m.float() + (g.float() + corr.float())
+    y_new = (y.float() - eta * m_new).to(y.dtype)
+    return y_new, m_new.to(m.dtype)
+
+
+def scaffold_momentum_update_tree_ref(y, g, corr, m, eta: float,
+                                      beta: float):
+    """Per-leaf plain version of the packed heavy-ball path; returns
+    ``(y', m')`` trees."""
+    out = {k: scaffold_momentum_update_ref(y[k], g[k], corr[k], m[k], eta,
+                                           beta) for k in y}
+    return ({k: v[0] for k, v in out.items()},
+            {k: v[1] for k, v in out.items()})
+
+
 def scaffold_local_loop_ref(y, corr, eta_table, A, b, *, m=None,
                             beta: float = 0.0):
     """K-step corrected local loop on the quadratics substrate.

@@ -3,7 +3,6 @@ capability gate's reason strings, word for word, and ``run_local_steps``
 on the quadratics substrate (per-step plain, per-step fused, and the
 K-step kernel path; the JAX side under ``force_interpret()``), rtol 1e-5.
 """
-import dataclasses
 import types
 
 import jax.numpy as jnp
@@ -20,13 +19,6 @@ from repro_torch.configs.base import FedRoundSpec as TSpec
 from repro_torch.core import local_solver as tls
 from repro_torch.core.controller import make_grad_fn
 from repro_torch.data import quadratic_loss
-
-
-class _NoKernelSolver(tls.LocalSolver):
-    """Stands in for the reference's ``adam`` solver (not ported): a
-    solver without a megakernel variant."""
-
-    name = "adam"
 
 
 def _loss_without_marker(params, batch):
@@ -63,8 +55,7 @@ def test_megakernel_incompatibility_strings(case):
     tgrad = make_grad_fn(_loss_without_marker if c.get("unmarked")
                          else quadratic_loss)
     jsolver = jls.get_local_solver(c.get("solver", "sgd"))
-    tsolver = (_NoKernelSolver() if c.get("solver")
-               else tls.get_local_solver("sgd"))
+    tsolver = tls.get_local_solver(c.get("solver", "sgd"))
     want = jls.megakernel_incompatibility(
         jgrad, jsolver, prox_mu=c.get("prox_mu", 0.0), params=jp, batches=jb)
     got = tls.megakernel_incompatibility(
@@ -112,18 +103,16 @@ def test_run_local_steps_matches_reference(path, with_corr):
 
 
 def test_not_ported_solvers_raise():
-    for name in ("momentum", "adam", "sgd_sched"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tls.get_local_solver(name)
-    spec = dataclasses.replace(TSpec(algorithm="scaffold", num_clients=2,
-                                     num_sampled=1, local_steps=1,
-                                     local_batch=1),
-                               local_solver="momentum")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tls.run_local_steps(make_grad_fn(quadratic_loss), spec,
-                            {"x": torch.zeros(2)},
-                            {"A": torch.zeros(1, 1, 2, 2),
-                             "b": torch.zeros(1, 1, 2)})
+    """Every solver of the reference is registered (none is left
+    unported), with the reference's flags; an unknown name raises."""
+    assert tls.local_solver_names() == jls.local_solver_names() == (
+        "adam", "momentum", "sgd", "sgd_sched")
+    for name in tls.local_solver_names():
+        got, want = tls.get_local_solver(name), jls.get_local_solver(name)
+        assert (got.stateful, got.megakernel) == (want.stateful,
+                                                 want.megakernel), name
+    with pytest.raises(KeyError, match="unknown local solver 'lion'"):
+        tls.get_local_solver("lion")
 
 
 def test_duck_typed_spec_defaults_to_sgd():

@@ -1,12 +1,12 @@
-"""The port's K-step local loop (kernel B3) against the JAX package's
-Pallas megakernel.
+"""The port's K-step local loops (kernels B3 and B4) against the JAX
+package's Pallas megakernels.
 
-The JAX side runs ``megakernel.scaffold_local_loop`` under
-``force_interpret()`` (the Pallas body in interpret mode on the CPU); the
-port runs its plain version, which is what its wrapper does for CPU
-tensors and the CPU fast path of ``run_local_steps``. Same numpy inputs;
-y_K and the per-step losses agree to rtol 1e-5 (fp32 sums taken in
-another order).
+The JAX side runs ``megakernel.scaffold_local_loop`` in interpret mode
+(the Pallas body on the CPU; with a slot ``m`` that is
+``scaffold_momentum_local_loop_2d``); the port runs its plain version,
+which is what its wrapper does for CPU tensors and the CPU fast path of
+``run_local_steps``. Same numpy inputs; y_K, m_K and the per-step losses
+agree to rtol 1e-5 (fp32 sums taken in another order).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -65,9 +65,33 @@ def test_local_loop_matches_pallas_interpret(d, K, with_corr):
 
 
 @pytest.mark.parametrize("K", [1, 4])
+def test_momentum_local_loop_matches_pallas_interpret(K):
+    """B4's plain version against the Pallas heavy-ball loop at d=33 (the
+    JAX side pads it to 128 lanes)."""
+    z = _inputs(33, K, bsz=2, seed=3)
+    m0 = np.random.default_rng(6).standard_normal(33).astype(np.float32)
+    yj, mj, lj = jmk.scaffold_local_loop(
+        {"x": jnp.asarray(z["y"])}, {"x": jnp.asarray(z["corr"])},
+        {"A": jnp.asarray(z["A"]), "b": jnp.asarray(z["b"])},
+        jnp.asarray(z["eta"]), m={"x": jnp.asarray(m0)}, beta=0.9,
+        interpret=True)
+    before = dict(ops.LAUNCHES)
+    yt, mt, lt = mk.scaffold_local_loop(
+        {"x": torch.from_numpy(z["y"])}, {"x": torch.from_numpy(z["corr"])},
+        {"A": torch.from_numpy(z["A"]), "b": torch.from_numpy(z["b"])},
+        torch.from_numpy(z["eta"]), m={"x": torch.from_numpy(m0)}, beta=0.9,
+        device="cpu")
+    assert ops.LAUNCHES == before  # plain on the CPU
+    assert yt["x"].shape == mt["x"].shape == (33,) and lt.shape == (K,)
+    assert mt["x"].dtype == torch.float32
+    assert (_close(yt["x"], yj["x"]) and _close(mt["x"], mj["x"])
+            and _close(lt, lj))
+
+
+@pytest.mark.parametrize("K", [1, 4])
 def test_momentum_branch_matches_reference_plain(K):
-    """The heavy-ball branch of the plain version (the CPU path of the
-    not-yet-ported B4 kernel) against the JAX plain version."""
+    """The heavy-ball branch of the plain version (the CPU path of kernel
+    B4) against the JAX plain version."""
     z = _inputs(33, K, bsz=2, seed=1)
     m0 = np.random.default_rng(5).standard_normal(33).astype(np.float32)
     yj, mj, lj = jref.scaffold_local_loop_ref(

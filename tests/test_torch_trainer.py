@@ -194,10 +194,6 @@ def test_lm_megakernel_falls_back_loudly(lm_weights):
     dict(trainer={"store": "tiered"}),
     dict(trainer={"async_buffer": 2}),
     dict(spec={"compress": "int8_ef"}),
-    dict(spec={"algorithm": "fedprox"}),
-    dict(spec={"algorithm": "scaffold_m"}),
-    dict(spec={"server_optimizer": "adam"}),
-    dict(spec={"local_solver": "momentum"}),
     dict(spec={"update_space": "lora", "lora_rank": 2}),
     dict(spec={"privatizer": "server_gauss", "clip_norm": 1.0,
                "noise_multiplier": 1.0}),
@@ -210,6 +206,32 @@ def test_not_ported_modes_raise(change):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         FederatedTrainer(quadratic_loss, lambda gen: {"x": torch.ones(20)},
                          spec, tds, device="cpu", **change.get("trainer", {}))
+
+
+@pytest.mark.parametrize("change", [
+    {"algorithm": "fedprox"},
+    {"algorithm": "scaffold_m"},
+    {"server_optimizer": "adam"},
+    {"local_solver": "momentum"},
+], ids=["fedprox", "scaffold_m", "server_adam", "local_momentum"])
+def test_ported_modes_match_reference(change):
+    """Modes that once raised "not ported yet" construct on the CPU and
+    run one round equal to the reference's (x to 1e-5 of the start's
+    scale, 1)."""
+    kw = {**dict(algorithm="scaffold", num_clients=2, num_sampled=2,
+                 local_steps=1, local_batch=1), **change}
+    jds, tds = jax_fig3(), make_paper_fig3()
+    jt = JTrainer(jax_quadratic_loss,
+                  lambda key: {"x": jnp.ones((jds.dim,), jnp.float32)},
+                  JSpec(**kw), jds)
+    tt = FederatedTrainer(quadratic_loss,
+                          lambda gen: {"x": torch.ones(tds.dim)},
+                          TSpec(**kw), tds, device="cpu")
+    mj, mt = jt.run_round(), tt.run_round()
+    xj = np.asarray(jt.x["x"])
+    assert np.abs(tt.x["x"].numpy() - xj).max() <= 1e-5 * max(
+        1.0, np.abs(xj).max())
+    assert abs(mt["loss"] - mj["loss"]) <= 1e-5 * max(1.0, abs(mj["loss"]))
 
 
 def test_tree_helpers_match_jax():
