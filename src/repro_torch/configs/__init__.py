@@ -1,19 +1,19 @@
 """Architecture registry of the port: ``get_config`` / ``get_reduced``.
 
-Only llama3.2-3b is ported so far; other architectures of the JAX
-package raise ``NotImplementedError``.
+llama3.2-3b and gemma3-1b are ported so far; the other architectures
+of the JAX package raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from repro_torch.configs import llama3_2_3b
+from repro_torch.configs import gemma3_1b, llama3_2_3b
 from repro_torch.configs.base import FedRoundSpec, ModelConfig  # noqa: F401
 
-_ARCHS = {"llama3.2-3b": llama3_2_3b}
+_ARCHS = {"llama3.2-3b": llama3_2_3b, "gemma3-1b": gemma3_1b}
 
 # the JAX package's other architectures, not ported yet
-_NOT_PORTED = ("hymba-1.5b", "minicpm3-4b", "whisper-tiny", "gemma3-1b",
-               "paligemma-3b", "deepseek-v3-671b", "mamba2-2.7b",
-               "qwen2-moe-a2.7b", "minitron-4b")
+_NOT_PORTED = ("hymba-1.5b", "minicpm3-4b", "whisper-tiny", "paligemma-3b",
+               "deepseek-v3-671b", "mamba2-2.7b", "qwen2-moe-a2.7b",
+               "minitron-4b")
 
 def _module(arch_id: str):
     if arch_id in _NOT_PORTED:

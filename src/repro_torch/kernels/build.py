@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = {
     "scaffold_update": "scaffold_update/csrc/scaffold_update.cu",
     "local_loop": "scaffold_update/csrc/local_loop.cu",
+    "swa_attention": "swa_attention/csrc/swa_attention.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

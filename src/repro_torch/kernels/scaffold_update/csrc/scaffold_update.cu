@@ -19,9 +19,10 @@
 //
 // Design against that bound:
 //  * One launch covers a whole dtype group of the parameter tree, with no
-//    packed copy: the launch carries a table of leaf pointers and sizes
-//    by value (multi-tensor style), blockIdx.y picks the leaf and
-//    blockIdx.x strides over it. The TPU path concatenated every leaf into
+//    packed copy: the launch carries a table of up to 256 leaf pointers
+//    and sizes by value (multi-tensor style; 15 KB of parameters, past the
+//    old 4 KB limit, as CUDA 12.1 allows up to 32 KB from Volta on),
+//    blockIdx.y picks the leaf and blockIdx.x strides over it. The TPU path concatenated every leaf into
 //    fresh buffers, four (B2: six) extra param-sized copies per step.
 //  * 16-byte vector loads and stores (8 elements a thread for every
 //    dtype: one 16 B access for bf16, two for fp32), a grid-stride
@@ -39,7 +40,7 @@
 
 namespace {
 
-constexpr int kMaxLeaves = 64;  // 64 * 56 B + 64 * 4 B of leaf table per launch
+constexpr int kMaxLeaves = 256;  // 256 * 56 B + 256 * 4 B of leaf table per launch
 constexpr int kThreads = 256;
 constexpr int kVec = 8;
 

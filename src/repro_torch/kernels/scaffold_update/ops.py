@@ -41,7 +41,7 @@ LAUNCHES: Dict[str, int] = {
     "scaffold_local_loop": 0, "scaffold_momentum_local_loop": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_LEAVES = 64  # leaf table size of one launch (scaffold_update.cu)
+MAX_LEAVES = 256  # leaf table size of one launch (scaffold_update.cu)
 
 
 def reset_launches() -> None:

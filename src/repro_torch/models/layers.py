@@ -1,11 +1,12 @@
-"""Model layers of the llama family (the JAX package's
-``models/layers.py``, its llama subset): init helpers, RMSNorm, RoPE,
-dense causal GQA attention and the silu-gated MLP.
+"""Model layers of the llama and gemma3 families (the JAX package's
+``models/layers.py``, their subset): init helpers, RMSNorm, RoPE, dense
+causal and sliding-window GQA attention, the banded local attention of
+``"W"`` layers, and the silu- and gelu-gated MLPs.
 
 Conventions as in the reference: activations (B, S, E); q/k/v
 (B, S, H, D); parameters are dicts of tensors. The other layers of the
-reference (layer norm, sliding-window, flash and MLA attention, MoE,
-Mamba2) are not ported yet and raise ``NotImplementedError``.
+reference (layer norm, flash and MLA attention, MoE, Mamba2) are not
+ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.swa_attention.ops import swa_attention
 
 # ---------------------------------------------------------------------------
 # init helpers (torch.Generator in place of the reference's jax keys)
@@ -99,12 +102,13 @@ def _repeat_kv(k, n_rep: int):
         b, s, h * n_rep, d)
 
 
-def dense_attention(q, k, v, *, mask_kind: str = "causal",
+def dense_attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
                     scale: Optional[float] = None):
     """Reference (non-chunked) attention as plain tensor code.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D). mask_kind in {"causal",
-    "full"}. q positions are [Skv-Sq, Skv). Scores are taken in fp32 (the
+    "sliding", "full"}; "sliding" keeps ``0 <= q_pos - k_pos < window``.
+    q positions are [Skv-Sq, Skv). Scores are taken in fp32 (the
     reference's ``preferred_element_type``), the softmax is fp32 and its
     probabilities are cast to v's dtype for the second product.
     """
@@ -115,16 +119,67 @@ def dense_attention(q, k, v, *, mask_kind: str = "causal",
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores * scale
+    q_pos = torch.arange(sq, device=q.device) + (skv - sq)
+    k_pos = torch.arange(skv, device=q.device)
+    rel = q_pos[:, None] - k_pos[None, :]  # >= 0: k not in the future
     if mask_kind == "causal":
-        q_pos = torch.arange(sq, device=q.device) + (skv - sq)
-        k_pos = torch.arange(skv, device=q.device)
-        mask = (q_pos[:, None] - k_pos[None, :]) >= 0
+        mask = rel >= 0
+    elif mask_kind == "sliding":
+        mask = (rel >= 0) & (rel < window)
+    elif mask_kind == "full":
+        mask = None
+    else:
+        raise NotImplementedError(f"mask {mask_kind!r}: not ported yet")
+    if mask is not None:
         scores = torch.where(mask[None, None], scores,
                              torch.full((), NEG_INF, device=q.device))
-    elif mask_kind != "full":
-        raise NotImplementedError(f"mask {mask_kind!r}: not ported yet")
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def local_attention(q, k, v, *, window: int, scale: Optional[float] = None):
+    """Exact sliding-window causal attention in O(S*2W) (the reference's
+    ``local_attention_jnp``), the model layer of ``"W"`` attention.
+
+    Needs S % window == 0 and S >= 2*window, else it is dense sliding
+    attention. Each window-sized q block attends to its own and the
+    previous kv block, masked to the band ``0 <= q_pos - k_pos <
+    window``; q is cast to fp32 and scaled before the product, p @ v is
+    fp32, and the result is cast to q's dtype once.
+    """
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if s % window != 0 or s < 2 * window:
+        return dense_attention(q, k, v, mask_kind="sliding", window=window,
+                               scale=scale)
+    n_rep = hq // hkv
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    nb = s // window
+    qb = q.reshape(b, nb, window, hq, d).float() * scale
+    kb = k.reshape(b, nb, window, hq, d)
+    vb = v.reshape(b, nb, window, hq, v.shape[-1])
+    # kv context of block i = (block i-1, block i); block -1 is zeros
+    prev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+    kctx = torch.cat([prev, kb], dim=2)  # (B, nb, 2W, H, D)
+    prevv = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+    vctx = torch.cat([prevv, vb], dim=2)
+    s_ = torch.einsum("bnqhd,bnkhd->bnhqk", qb, kctx.float())
+    dev = q.device
+    q_pos = torch.arange(window, device=dev)[:, None]  # within the block
+    k_pos = torch.arange(2 * window, device=dev)[None, :] - window
+    rel = q_pos - k_pos
+    mask = (rel >= 0) & (rel < window)  # (W, 2W)
+    # the first block has no previous block: mask its previous half
+    first = ((torch.arange(nb, device=dev) == 0)[:, None, None]
+             & (k_pos[None] < 0))  # (nb, 1, 2W)
+    neg = torch.full((), NEG_INF, device=dev)
+    s_ = torch.where(mask[None, None, None], s_, neg)
+    s_ = torch.where(first[:, None, :, :], neg, s_)
+    p = torch.softmax(s_, dim=-1)
+    out = torch.einsum("bnhqk,bnkhd->bnqhd", p, vctx.float())
+    return out.reshape(b, s, hq, v.shape[-1]).to(q.dtype)
 
 
 def init_attention(cfg, gen, dtype, device):
@@ -140,12 +195,17 @@ def init_attention(cfg, gen, dtype, device):
 
 def attention_block(cfg, p, x, positions, *, kind: str,
                     use_flash_threshold: int = 2048):
-    """Causal self-attention over the full sequence (train / prefill)."""
+    """Causal self-attention over the full sequence (train / prefill):
+    full causal for ``"F"`` layers, sliding-window for ``"W"`` layers,
+    routed as the reference routes them. A ``"W"`` layer whose sequence
+    is a multiple of the window and at least two windows long runs the
+    sliding-window kernel (B5, ``kernels.swa_attention``) in its forward
+    pass; a shorter or ragged one takes dense sliding attention."""
     b, s, e = x.shape
     h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if kind != "F":
+    if kind not in ("F", "W"):
         raise NotImplementedError(f"attention kind {kind!r}: not ported yet")
-    if s > use_flash_threshold:
+    if kind == "F" and s > use_flash_threshold:
         raise NotImplementedError(
             f"sequence length {s} > {use_flash_threshold} takes the "
             f"reference's flash_attention_jnp path: not ported yet")
@@ -154,7 +214,17 @@ def attention_block(cfg, p, x, positions, *, kind: str,
     v = (x @ p["wv"]).reshape(b, s, hkv, d)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = dense_attention(q, k, v, mask_kind="causal")
+    if kind == "W":
+        w = cfg.sliding_window
+        # the reference's routing: the band path (B5) on whole windows
+        # only; elsewhere dense sliding attention, which rounds p to v's
+        # dtype as the reference's does and launches no kernel
+        if s % w == 0 and s >= 2 * w:
+            out = swa_attention(q, k, v, w)
+        else:
+            out = dense_attention(q, k, v, mask_kind="sliding", window=w)
+    else:
+        out = dense_attention(q, k, v, mask_kind="causal")
     return out.reshape(b, s, h * d) @ p["wo"]
 
 
@@ -163,9 +233,12 @@ def attention_block(cfg, p, x, positions, *, kind: str,
 # ---------------------------------------------------------------------------
 
 
+_MLP_KINDS = ("silu_gated", "gelu_gated")
+
+
 def init_mlp(cfg, gen, dtype, device):
-    """silu-gated MLP weights w_gate, w_up, w_down."""
-    if cfg.mlp_kind != "silu_gated":
+    """Gated MLP weights w_gate, w_up, w_down (silu- or gelu-gated)."""
+    if cfg.mlp_kind not in _MLP_KINDS:
         raise NotImplementedError(f"mlp {cfg.mlp_kind!r}: not ported yet")
     e, f = cfg.d_model, cfg.d_ff
     return {
@@ -176,7 +249,12 @@ def init_mlp(cfg, gen, dtype, device):
 
 
 def mlp_block(cfg, p, x):
-    """(silu(x W_gate) * x W_up) W_down."""
-    if cfg.mlp_kind != "silu_gated":
+    """(act(x W_gate) * x W_up) W_down, act silu or gelu. The gelu is the
+    tanh approximation, ``jax.nn.gelu``'s default (torch's default is the
+    exact erf form)."""
+    if cfg.mlp_kind not in _MLP_KINDS:
         raise NotImplementedError(f"mlp {cfg.mlp_kind!r}: not ported yet")
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    gate = x @ p["w_gate"]
+    act = (F.silu(gate) if cfg.mlp_kind == "silu_gated"
+           else F.gelu(gate, approximate="tanh"))
+    return (act * (x @ p["w_up"])) @ p["w_down"]

@@ -77,7 +77,10 @@ def count_params_analytic(cfg) -> int:
 def _embed(cfg, params, tokens):
     x = params["embed"][tokens.long()]
     if cfg.scale_embeddings:
-        x = x * math.sqrt(cfg.d_model)
+        # the reference rounds sqrt(d_model) to the table's dtype first
+        # (bf16: sqrt(1152) = 33.94 -> 34.0)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
     return x.to(_dtype(cfg.compute_dtype))
 
 

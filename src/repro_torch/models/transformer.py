@@ -3,10 +3,12 @@ layers grouped into runs of one signature, each run's parameters stacked
 on a leading layer axis, exactly the reference's leaf layout
 (``layers/<group>/attn/wq`` of shape ``(count, E, H*D)``).
 
-Only the ``"F"`` pattern (full causal attention + dense MLP) is ported;
-the others raise ``NotImplementedError``. The reference rematerialises
-each layer in the backward pass (``cfg.remat``); the port keeps the
-activations, which changes memory, not values.
+The ``"F"`` (full causal attention + dense MLP) and ``"W"``
+(sliding-window attention + dense MLP) layers are ported; the others
+raise ``NotImplementedError``. The reference rematerialises each layer
+in the backward pass (``cfg.remat``); the port keeps the activations
+(a ``"W"`` layer's attention keeps only its q, k and v and recomputes
+the rest in the backward pass), which changes memory, not values.
 """
 from __future__ import annotations
 
@@ -43,10 +45,10 @@ def layer_groups(cfg) -> List[LayerGroup]:
         else:
             groups.append(LayerGroup(sig[0], sig[1], 1, sig[2]))
     for g in groups:
-        if g.kind != "F" or g.uses_moe or g.has_cross:
+        if g.kind not in ("F", "W") or g.uses_moe or g.has_cross:
             raise NotImplementedError(
-                f"layer group {g}: not ported yet (only dense 'F' layers "
-                f"are)")
+                f"layer group {g}: not ported yet (only dense 'F' and 'W' "
+                f"layers are)")
     return groups
 
 
@@ -81,10 +83,11 @@ def init_stack(cfg, gen, dtype, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _apply_layer(cfg, p, x, positions):
-    """Full-sequence forward of one dense "F" layer."""
+def _apply_layer(cfg, p, x, positions, kind: str):
+    """Full-sequence forward of one dense "F" or "W" layer."""
     h_in = L.apply_norm(cfg, x, sub(p, "ln_attn"))
-    x = x + L.attention_block(cfg, sub(p, "attn"), h_in, positions, kind="F")
+    x = x + L.attention_block(cfg, sub(p, "attn"), h_in, positions,
+                              kind=kind)
     h2 = L.apply_norm(cfg, x, sub(p, "ln_mlp"))
     return x + L.mlp_block(cfg, sub(p, "mlp"), h2)
 
@@ -95,5 +98,5 @@ def apply_stack(cfg, params, x, positions):
         stack = sub(params, f"layers/{gi}")
         for i in range(g.count):
             x = _apply_layer(cfg, {k: v[i] for k, v in stack.items()}, x,
-                             positions)
+                             positions, g.kind)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -8,7 +8,10 @@ import nothing of JAX, so they run on a GPU machine without it:
 Bounds: the fused corrected and heavy-ball updates (B1, B2) within 1 ulp
 of y's dtype and 0 ulp of the fp32 slot (they round each operation as
 the plain versions do); the K-step loops (B3, B4) in fp32 to rtol 1e-5
-(sums in another order).
+(sums in another order); sliding-window attention (B5) in fp32 to 2e-5
+absolute, in bf16 to 1 bf16 ulp of the plain element plus 2e-5 (both
+round an fp32 result once; the fp32 results differ by the order of their
+sums, which exceeds an ulp only below 2^-8).
 """
 import math
 
@@ -17,6 +20,8 @@ import torch
 
 from repro_torch.kernels.scaffold_update import megakernel as mk
 from repro_torch.kernels.scaffold_update import ops, ref
+from repro_torch.kernels.swa_attention import ops as swa_ops
+from repro_torch.kernels.swa_attention import ref as swa_ref
 
 pytestmark = [
     pytest.mark.gpu,
@@ -52,6 +57,18 @@ def test_scaffold_update_unaligned_views_take_the_scalar_path():
     y, g, c = base[1:], base[:-1].clone(), base[:-1].clone()  # y off by 4 B
     out = ops.scaffold_update(y, g, c, 0.1)
     assert ulp_distance(out, ref.scaffold_update_ref(y, g, c, 0.1)) <= 1
+
+
+def test_scaffold_update_packed_one_launch_for_a_large_tree():
+    """gemma3-1b's tree has 83 leaves in one dtype group: one launch."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    y, g, c = ({f"w{i}": torch.randn(97 + i, generator=gen, device="cuda")
+                for i in range(ops.MAX_LEAVES)} for _ in range(3))
+    want = {k: ref.scaffold_update_ref(y[k], g[k], c[k], 0.1) for k in y}
+    before = ops.LAUNCHES["scaffold_update"]
+    ops.scaffold_update_packed(y, g, c, 0.1, out=y)
+    assert ops.LAUNCHES["scaffold_update"] == before + 1
+    assert all(ulp_distance(y[k], want[k]) <= 1 for k in y)
 
 
 @pytest.mark.parametrize("d", [20, 1000, 1024])
@@ -144,3 +161,91 @@ def test_momentum_local_loop_matches_plain(d, bsz):
     for got, want in ((yk, yp), (mk_, mp), (lk, lp)):
         assert float((got - want).abs().max()) <= 1e-5 * float(
             want.abs().max())
+
+
+# (B, S, Hq, Hkv, D, window): the JAX package's kernel test shapes,
+# gemma3-1b's "W" layer at seq 2048, and a ragged S and window
+SWA_CASES = [(1, 512, 2, 1, 64, 128), (2, 256, 4, 4, 32, 64),
+             (1, 384, 6, 3, 64, 128), (2, 128, 2, 1, 128, 64),
+             (1, 2048, 4, 1, 256, 512), (1, 200, 2, 1, 32, 50)]
+
+
+def _swa_plain(q, k, v, w):
+    return swa_ref.swa_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), w).transpose(1, 2)
+
+
+def _within_bf16_bound(got, want):
+    """|got - want| <= 1 bf16 ulp of want, plus 2e-5, elementwise."""
+    got, want = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(2.0 ** -126))) - 7)
+    return bool(((got - want).abs() <= ulp + 2e-5).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SWA_CASES, ids=str)
+def test_swa_attention_matches_plain(case, dtype):
+    b, s, hq, hkv, d, w = case
+    gen = torch.Generator(device="cuda").manual_seed(s + d)
+    q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(
+        dtype) for _ in range(2))
+    before = swa_ops.LAUNCHES["swa_attention"]
+    got = swa_ops.swa_attention_cuda(q, k, v, w)
+    assert swa_ops.LAUNCHES["swa_attention"] == before + 1
+    want = _swa_plain(q, k, v, w)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 2e-5
+    else:
+        assert _within_bf16_bound(got, want)
+
+
+def test_swa_attention_op_backward_matches_the_cpu_op():
+    """Forward through the kernel (one launch), backward through the
+    recomputed model layer, against the same op on the CPU."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = ((2, 256, 4, 32), (2, 256, 2, 32), (2, 256, 2, 32))
+    xs = [torch.randn(sh, generator=gen, device="cuda") for sh in shapes]
+    cot = torch.randn(shapes[0], generator=gen, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [x.to(dev).requires_grad_(True) for x in xs]
+        before = swa_ops.LAUNCHES["swa_attention"]
+        out = swa_ops.swa_attention(*leaves, 64)
+        assert swa_ops.LAUNCHES["swa_attention"] == before + (dev == "cuda")
+        grads[dev] = torch.autograd.grad(out, leaves, cot.to(dev))
+    for gc, gp in zip(grads["cuda"], grads["cpu"]):
+        assert float((gc.cpu() - gp).abs().max()) <= 1e-5 * float(
+            gp.abs().max())
+
+
+def test_w_layer_takes_the_kernel_on_the_band_path_only():
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced("gemma3-1b")  # window 64
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    attn = {k: v[0] for k, v in T.sub(params, "layers/0/attn").items()}
+    for s, launches in ((128, 1), (64, 0), (96, 0)):
+        x = torch.randn((1, s, cfg.d_model), device="cuda")
+        pos = torch.arange(s, device="cuda")[None]
+        before = swa_ops.LAUNCHES["swa_attention"]
+        L.attention_block(cfg, attn, x, pos, kind="W")
+        assert swa_ops.LAUNCHES["swa_attention"] == before + launches, s
+
+
+def test_swa_attention_refuses_what_the_kernel_cannot_take():
+    q = torch.randn((1, 64, 2, 48), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        swa_ops.swa_attention_cuda(q, q, q, 16)
+    wide = torch.randn((1, 64, 2, 128), device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        swa_ops.swa_attention_cuda(wide, wide, wide, 16)
+    half = torch.randn((1, 64, 2, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        swa_ops.swa_attention_cuda(half, half, half, 16)

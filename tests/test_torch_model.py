@@ -89,9 +89,8 @@ def test_params_from_jax_keeps_bf16_bits():
 
 
 def test_unported_model_parts_raise():
-    cfg = dataclasses.replace(get_reduced("llama3.2-3b"), layer_pattern="W",
-                              sliding_window=8)
+    cfg = dataclasses.replace(get_reduced("llama3.2-3b"), layer_pattern="M")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TM.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("gemma3-1b")
+        get_config("hymba-1.5b")
