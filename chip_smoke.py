@@ -9,13 +9,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
   1. environment: card name and power limit, torch/CUDA versions, TF32 off
   2. build: the three CUDA sources from src/repro_torch/kernels/**/csrc
-     into build/kernels/, the nvcc processes started together
+     into build/kernels/, the nvcc processes started together; B5's
+     registers, spills and shared memory a block (no spills allowed in
+     its tensor-core instantiations)
   3. the fused corrected-step kernel (B1) against its plain version
   4. the fused heavy-ball kernel (B2) against its plain version
   5. the K-step local-loop kernel (B3) against its plain version
   6. the heavy-ball K-step kernel (B4) against its plain version
-  7. the sliding-window attention kernel (B5) against its plain version,
-     timed at gemma3-1b's "W" layer beside its bound and SDPA
+  7. the sliding-window attention kernel (B5) against its plain version;
+     its tensor-core instructions counted in the built library's SASS;
+     timed at gemma3-1b's "W" layer beside its bound and SDPA, by device
+     time (profiler) and per call (CUDA events)
   8. a 2-layer fp32 llama, one SCAFFOLD round on the card vs the CPU
   9. a 2-layer fp32 gemma3 at seq 128 (its "W" layer through B5), one
      SCAFFOLD round on the card vs the CPU
@@ -48,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import resource
 import statistics
 import subprocess
@@ -95,11 +100,17 @@ BF16_FLOPS_PER_S = 989e12
 # results differ by their summation order, ~1e-6, which exceeds an ulp
 # only for elements below 2^-8)
 B5_FP32_ATOL = 2e-5
-# (B, S, Hq, Hkv, D, window): the JAX package's kernel test shapes and
-# gemma3-1b's "W" layer at seq 2048, batch 1 and 2
+# (B, S, Hq, Hkv, D, window): the JAX package's kernel test shapes,
+# gemma3-1b's "W" layer at seq 2048, batch 1 and 2, and the bf16 kernel's
+# tiling edges: S and W not multiples of its 64-row tiles, W >= S, batch 2
+# with 4 query heads a kv head
 B5_CASES = ((1, 512, 2, 1, 64, 128), (2, 256, 4, 4, 32, 64),
             (1, 384, 6, 3, 64, 128), (2, 128, 2, 1, 128, 64),
-            (1, 2048, 4, 1, 256, 512), (2, 2048, 4, 1, 256, 512))
+            (1, 2048, 4, 1, 256, 512), (2, 2048, 4, 1, 256, 512),
+            (1, 1000, 4, 1, 256, 300), (1, 1000, 4, 1, 64, 300),
+            (1, 300, 4, 1, 256, 512), (1, 200, 2, 1, 32, 50),
+            (2, 512, 4, 1, 256, 128), (2, 1000, 8, 2, 64, 300))
+B5_LAYER = B5_CASES[4]  # gemma3-1b's "W" layer at batch 1, the timed shape
 
 
 def reset_launches() -> None:
@@ -152,6 +163,57 @@ def cuda_ms(fn, iters: int, flush=None) -> float:
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def flush_kernels(flush) -> set:
+    """Names of the kernels that ``flush.zero_()`` launches (profiler)."""
+    return {e.key for e in _profiled_kernels(flush.zero_, 3, flush.zero_)}
+
+
+def _profiled_kernels(body, n: int, prime):
+    """Profiler averages of the device kernels that ``prime()`` and then
+    ``n`` calls of ``body()`` ran. The profiler can miss the first kernel
+    of a session, so ``prime`` launches one that is not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "Profiler clears events ..."
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prime()
+            torch.cuda.synchronize()
+            for _ in range(n):
+                body()
+            torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if _device_time_ms(e) > 0]
+
+
+def device_ms(fn, iters: int, flush, fill: set) -> float:
+    """Mean device milliseconds of one ``fn()``: the summed durations on
+    the card of the kernels it ran (torch.profiler), over ``iters`` calls,
+    each after ``flush.zero_()`` overwrote the L2 cache. The flush's own
+    kernels (names ``fill``, one more from the session's primer, which the
+    profiler may miss) are left out. Each of ``fn``'s kernels must count a
+    multiple of ``iters``, so that none was missed or taken for a
+    flush."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+
+    def body():
+        flush.zero_()
+        fn()
+
+    evs = _profiled_kernels(body, iters, flush.zero_)
+    n_fill = sum(e.count for e in evs if e.key in fill)
+    mine = [e for e in evs if e.key not in fill]
+    if n_fill not in (iters, iters + 1) or not mine or any(
+            e.count % iters for e in mine):
+        raise AssertionError(
+            f"device_ms: {n_fill} flush kernels in {iters} calls; "
+            + "; ".join(f"{e.key[:60]} x{e.count}" for e in evs))
+    return sum(_device_time_ms(e) for e in mine) / iters
 
 
 def in_turns(kernel, plain, turns: int, k_iters: int, p_iters: int,
@@ -245,13 +307,70 @@ def phase_build():
     secs = build.build()
     log(f"build: {sorted(build.SOURCES)} in {secs:.1f} s wall, into "
         f"{build.BUILD_DIR}")
-    for name, out in sorted(build.BUILD_LOGS.items()):
+    logs = {name: build.ptxas_log(name) for name in sorted(build.SOURCES)}
+    for name, out in logs.items():
         used = [ln.strip() for ln in out.splitlines() if "Used" in ln]
         log(f"  ptxas {name}: {len(used)} kernels, e.g. "
             f"{used[0] if used else 'no ptxas report'}")
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "ptxas.txt").write_text("".join(
-        f"== {name}\n{out}" for name, out in sorted(build.BUILD_LOGS.items())))
+        f"== {name}\n{out}" for name, out in logs.items()))
+    smem = build.load("swa_attention").swa_attention_smem_bytes
+    report = ptxas_report(logs["swa_attention"])
+    spilled = []
+    for fn, r in sorted(report.items()):
+        dtype = 1 if fn.startswith("swa_fwd_wgmma") else 0
+        d = int(fn[fn.index("<") + 1:-1])
+        log(f"  B5 {fn}: {r['registers']} registers, {r['spill_stores']} B "
+            f"spill stores, {r['spill_loads']} B spill loads, "
+            f"{smem(dtype, d)} B dynamic shared memory a block")
+        if dtype == 1 and (r["spill_stores"] or r["spill_loads"]):
+            spilled.append(fn)
+    if sorted(report) != sorted(f"swa_fwd_{kind}<{d}>" for kind in
+                                ("wgmma", "simt") for d in (32, 64, 128, 256)):
+        raise AssertionError(f"B5 ptxas report: functions {sorted(report)}")
+    if spilled:
+        raise AssertionError(f"B5 tensor-core kernels spill: {spilled}")
+
+
+def ptxas_report(out: str) -> dict:
+    """Registers and spill bytes of each B5 kernel function in an
+    ``-Xptxas -v`` log, by ``swa_fwd_<kind><D>``."""
+    report, fn = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Compiling entry function '.*?(swa_fwd_\w+?)ILi(\d+)E",
+                      ln)
+        if m:
+            fn = f"{m.group(1)}<{m.group(2)}>"
+            report[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            report[fn].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            report[fn]["registers"] = int(m.group(1))
+    return report
+
+
+def sass_tensor_core_counts(lib: Path) -> dict:
+    """Tensor-core instructions (HGMMA, HMMA) of each B5 kernel function
+    in a built library's SASS (``cuobjdump -sass``), by function."""
+    from repro_torch.kernels import build
+
+    sass = subprocess.run([build.toolkit("cuobjdump"), "-sass", str(lib)],
+                          check=True, capture_output=True, text=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        m = re.search(r"(swa_fwd_\w+?)ILi(\d+)E", part.split("\n", 1)[0])
+        if m:
+            counts[f"{m.group(1)}<{m.group(2)}>"] = dict(
+                HGMMA=len(re.findall(r"\bHGMMA\.", part)),
+                HMMA=len(re.findall(r"\bHMMA\.", part)))
+    return counts
 
 
 def phase_b1_plain():
@@ -507,12 +626,15 @@ def _swa_plain(q, k, v, window):
 
 def phase_b5_plain(result):
     """Phase 7: the sliding-window attention kernel against its plain
-    version; timed at gemma3-1b's "W" layer shape beside its bound, its
-    plain version and SDPA with the band mask."""
+    version (bf16: 1 ulp where |plain| >= 2^-8, 1 ulp + B5_FP32_ATOL
+    everywhere); the tensor-core instructions of its SASS counted; timed
+    at gemma3-1b's "W" layer shape beside its bound, its plain version and
+    SDPA with the band mask, by device time and per call."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    from repro_torch.kernels import build
     from repro_torch.kernels.swa_attention import ops as swa_ops
 
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -533,9 +655,9 @@ def phase_b5_plain(result):
                 note = f"bound {B5_FP32_ATOL:.0e}"
             else:
                 ulp = bf16_ulps(want)
-                ok = bool((err <= ulp + B5_FP32_ATOL).all())
                 big = want.float().abs() >= 2.0 ** -8
                 e_ulp = float((err[big] / ulp[big]).max()) if big.any() else 0.
+                ok = bool((err <= ulp + B5_FP32_ATOL).all()) and e_ulp <= 1
                 small = int((err > ulp).sum())
                 worst_ulp, n_small = max(worst_ulp, e_ulp), n_small + small
                 note = (f"{e_ulp:.0f} ulp at most where |plain| >= 2^-8; "
@@ -558,17 +680,36 @@ def phase_b5_plain(result):
     if failed:
         raise AssertionError("; ".join(failed))
 
+    # the tensor-core design lives in what runs: the bf16 kernels' SASS
+    # holds HGMMA (wgmma) instructions
+    counts = sass_tensor_core_counts(build.library("swa_attention"))
+    log("B5 SASS tensor-core instructions (cuobjdump -sass): " + "; ".join(
+        f"{fn} {c['HGMMA']} HGMMA, {c['HMMA']} HMMA"
+        for fn, c in sorted(counts.items())))
+    main = counts.get(f"swa_fwd_wgmma<{B5_LAYER[4]}>", {})
+    if not main.get("HGMMA", 0) + main.get("HMMA", 0):
+        raise AssertionError(f"B5: no tensor-core instruction in the SASS of"
+                             f" swa_fwd_wgmma<{B5_LAYER[4]}> ({counts})")
+
     # timing at gemma3-1b's "W" layer (seq 2048, batch 1) in bf16, L2
-    # flushed before every call
-    b, s, hq, hkv, d, w = B5_CASES[4]
+    # flushed before every call (256 MB of uint8, whose fill kernel no
+    # timed call launches)
+    b, s, hq, hkv, d, w = B5_LAYER
     q, k, v = _swa_inputs(gen, b, s, hq, hkv, d, bf16)
     plain = _swa_plain(q, k, v, w)
     err = float((swa_ops.swa_attention_cuda(q, k, v, w).float()
                  - plain.float()).abs().max())
-    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
-    k_all, p_all = in_turns(lambda: swa_ops.swa_attention_cuda(q, k, v, w),
-                            lambda: _swa_plain(q, k, v, w), turns=4,
-                            k_iters=20, p_iters=5, flush=flush)
+    flush = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
+    fill = flush_kernels(flush)
+
+    def kernel():
+        return swa_ops.swa_attention_cuda(q, k, v, w)
+
+    def plain_fn():
+        return _swa_plain(q, k, v, w)
+
+    k_all, p_all = in_turns(kernel, plain_fn, turns=4, k_iters=20,
+                            p_iters=5, flush=flush)
     pos = torch.arange(s, device="cuda")
     rel = pos[:, None] - pos[None, :]
     band = (rel >= 0) & (rel < w)
@@ -586,8 +727,17 @@ def phase_b5_plain(result):
         lib_err = float((sdpa().transpose(1, 2).float()
                          - plain.float()).abs().max())
         lib_all = [cuda_ms(sdpa, 20, flush=flush) for _ in range(4)]
-    log(f"SDPA with the band mask, enable_gqa, L2 flushed: pinned to "
-        f"CUDNN_ATTENTION {spread(lib_all)} (the yardstick); unpinned "
+        # device time, the yardstick: the kernels' own durations, without
+        # the wrapper's host work that the per-call events also hold;
+        # in turns (B5, SDPA, plain, then the reverse)
+        dev = {"kernel": [], "sdpa": [], "plain": []}
+        sides = (("kernel", kernel, 20), ("sdpa", sdpa, 20),
+                 ("plain", plain_fn, 5))
+        for turn in range(4):
+            for name, fn, iters in (sides if turn % 2 == 0 else sides[::-1]):
+                dev[name].append(device_ms(fn, iters, flush, fill))
+    log(f"SDPA with the band mask, enable_gqa, L2 flushed, per call (CUDA "
+        f"events): pinned to CUDNN_ATTENTION {spread(lib_all)}; unpinned "
         f"dispatch {spread(default_all)}")
     # the band's (q, k) pairs in this input, 4*D flops each (q k^T and
     # p v); q, k, v read once and o written once
@@ -597,16 +747,19 @@ def phase_b5_plain(result):
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound, bound_by = max((t_ops, "operations"), (t_bytes, "bytes"))
-    k_ms, p_ms = statistics.median(k_all), statistics.median(p_all)
-    lib_ms = statistics.median(lib_all)
+    k_ms, p_ms, lib_ms = (statistics.median(dev[n])
+                          for n in ("kernel", "plain", "sdpa"))
     log(f"swa_attention gemma3-1b W layer (B {b}, S {s}, {hq}q/{hkv}kv heads"
-        f" x {d}, W {w}) bf16, L2 flushed: kernel {spread(k_all)}, plain "
-        f"{spread(p_all)}, SDPA with the band mask (cuDNN) "
-        f"{spread(lib_all)}; bound {bound:.4f} ms by {bound_by} ({pairs} "
+        f" x {d}, W {w}) bf16, L2 flushed. Device time (profiler): kernel "
+        f"{spread(dev['kernel'])}, plain {spread(dev['plain'])}, SDPA with "
+        f"the band mask (cuDNN) {spread(dev['sdpa'])}; B5 leads SDPA "
+        f"{lib_ms / k_ms:.2f}x. Per call (CUDA events): kernel "
+        f"{spread(k_all)}, plain {spread(p_all)}, SDPA (cuDNN) "
+        f"{spread(lib_all)}. Bound {bound:.4f} ms by {bound_by} ({pairs} "
         f"pairs a head, {flops / 1e9:.2f} GFLOP = {t_ops * 1e3:.2f} us at "
         f"989 TFLOP/s; {nbytes / 1e6:.2f} MB = {t_bytes * 1e3:.2f} us at "
-        f"3.35 TB/s); {flops / k_ms / 1e9:.1f} TFLOP/s; max |kernel - "
-        f"plain| {err:.3e}, |SDPA - plain| {lib_err:.3e}")
+        f"3.35 TB/s); {flops / k_ms / 1e9:.1f} TFLOP/s by device time; max "
+        f"|kernel - plain| {err:.3e}, |SDPA - plain| {lib_err:.3e}")
     result["b5"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                         bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
     del flush, q, k, v, plain, band, qt, kt, vt
@@ -953,7 +1106,7 @@ def phase_gemma_full(result):
     if counts != want:
         raise AssertionError(f"gemma: launches {counts} != {want}")
     result["b5_launches"] = counts["swa_attention"]
-    _profile_round(tr, "gemma", kernels=("swa_fwd_kernel",
+    _profile_round(tr, "gemma", kernels=("swa_fwd_wgmma",
                                          "scaffold_update"))
     tr.close()
     del tr

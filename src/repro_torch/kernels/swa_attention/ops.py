@@ -14,10 +14,13 @@
 
 The kernel reads the model layout (B, S, H, D) by strides (the head dim
 contiguous), so the layer makes no transposed copies. It takes head dims
-of 32, 64, 128 and 256, fp32 and bf16; anything else raises, as does a
-failed build or launch: on the card nothing falls back to the plain
-version. ``LAUNCHES`` counts the kernel launches of this process; the
-CUDA wrapper adds one where it launches, nowhere else.
+of 32, 64, 128 and 256, fp32 and bf16. bf16 runs on the tensor cores and
+its tiles come in through TMA, which wants 16-byte-aligned base addresses
+and strides that are multiples of 16 bytes; fp32 runs the CUDA-core body.
+Anything else raises, as does a failed build or launch: on the card
+nothing falls back to the plain version or to the other body.
+``LAUNCHES`` counts the kernel launches of this process; the CUDA
+wrapper adds one where it launches, nowhere else.
 """
 from __future__ import annotations
 
@@ -70,6 +73,17 @@ def _check(q, k, v, window: int) -> None:
         raise ValueError(f"swa_attention: window {window} < 1")
 
 
+def _check_tma(what: str, t) -> None:
+    """Raise unless TMA can read ``t``: a 16-byte-aligned base and
+    (batch, sequence, head) strides that are multiples of 16 bytes."""
+    align = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(st % align for st in t.stride()[:3]):
+        raise ValueError(f"swa_attention_cuda: {what} at 0x{t.data_ptr():x}"
+                         f" with strides {t.stride()}: the bf16 kernel's TMA"
+                         f" copies want a 16-byte-aligned base and strides "
+                         f"that are multiples of 16 bytes")
+
+
 def swa_attention_cuda(q, k, v, window: int):
     """One launch of the sliding-window kernel on CUDA tensors in layout
     (B, S, H, D); returns a fresh contiguous (B, S, Hq, D) output."""
@@ -87,6 +101,8 @@ def swa_attention_cuda(q, k, v, window: int):
         if t.stride(-1) != 1:
             raise ValueError(f"swa_attention_cuda: {what}'s head dim is "
                              f"not contiguous (strides {t.stride()})")
+        if q.dtype == torch.bfloat16:
+            _check_tma(what, t)
     o = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(*[st for t in (q, k, v, o)
                                          for st in t.stride()[:3]])

@@ -164,10 +164,15 @@ def test_momentum_local_loop_matches_plain(d, bsz):
 
 
 # (B, S, Hq, Hkv, D, window): the JAX package's kernel test shapes,
-# gemma3-1b's "W" layer at seq 2048, and a ragged S and window
+# gemma3-1b's "W" layer at seq 2048, a ragged S and window, and the bf16
+# kernel's tiling edges at D 256 and 64: S and W not multiples of the
+# 64-row tiles, W >= S, batch 2 with 4 query heads a kv head
 SWA_CASES = [(1, 512, 2, 1, 64, 128), (2, 256, 4, 4, 32, 64),
              (1, 384, 6, 3, 64, 128), (2, 128, 2, 1, 128, 64),
-             (1, 2048, 4, 1, 256, 512), (1, 200, 2, 1, 32, 50)]
+             (1, 2048, 4, 1, 256, 512), (1, 200, 2, 1, 32, 50),
+             (1, 1000, 4, 1, 256, 300), (1, 1000, 4, 1, 64, 300),
+             (1, 300, 4, 1, 256, 512), (1, 300, 2, 1, 64, 300),
+             (2, 512, 4, 1, 256, 128), (2, 1000, 8, 2, 64, 300)]
 
 
 def _swa_plain(q, k, v, w):
@@ -200,6 +205,21 @@ def test_swa_attention_matches_plain(case, dtype):
         assert float((got - want).abs().max()) <= 2e-5
     else:
         assert _within_bf16_bound(got, want)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_swa_attention_reads_strided_views_of_a_fused_qkv(d):
+    """q, k and v as head slices of one (B, S, Hq + 2 Hkv, D) projection:
+    the head dim contiguous, the other strides those of the fused tensor
+    (16-byte multiples, as TMA wants)."""
+    b, s, hq, hkv, w = 2, 1000, 4, 1, 300
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    qkv = torch.randn((b, s, hq + 2 * hkv, d), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = qkv.split([hq, hkv, hkv], dim=2)
+    assert not q.is_contiguous() and k.stride() == qkv.stride()
+    got = swa_ops.swa_attention_cuda(q, k, v, w)
+    assert _within_bf16_bound(got, _swa_plain(q, k, v, w))
 
 
 def test_swa_attention_op_backward_matches_the_cpu_op():
@@ -249,3 +269,18 @@ def test_swa_attention_refuses_what_the_kernel_cannot_take():
     half = torch.randn((1, 64, 2, 64), device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         swa_ops.swa_attention_cuda(half, half, half, 16)
+
+
+def test_swa_attention_refuses_what_tma_cannot_read():
+    """bf16 tiles come in through TMA: a base off 16 bytes, or a stride
+    that is no multiple of 16 bytes, raises; nothing falls back."""
+    flat = torch.randn(1 + 64 * 2 * 64, device="cuda").to(torch.bfloat16)
+    off = flat[1:].view(1, 64, 2, 64)  # base 2 bytes past an aligned one
+    ok = flat[:-1].view(1, 64, 2, 64).clone()
+    before = swa_ops.LAUNCHES["swa_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        swa_ops.swa_attention_cuda(off, ok, ok, 16)
+    padded = torch.randn((1, 64, 2, 68), device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        swa_ops.swa_attention_cuda(ok, padded[..., :64], ok, 16)
+    assert swa_ops.LAUNCHES["swa_attention"] == before

@@ -12,13 +12,20 @@ reference's element plus 2e-5 (both round an fp32 result once; the two
 fp32 results differ by the order of their sums, ~1e-6, which is more
 than an ulp only for elements below 2^-8); gradients to 1e-5 of each
 leaf's largest element.
+
+The bf16 kernel's numerics (the split of the fp32 probabilities into two
+bf16 halves for the tensor cores) are emulated here and held to the
+JAX package's reference under the card check's bf16 rule.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.swa_attention import ref as jax_ref
 from repro.kernels.swa_attention import swa_attention as jax_swa_attention
 from repro.models import layers as JL
 from repro_torch.kernels.swa_attention import ops, ref
@@ -143,3 +150,76 @@ def test_op_refuses_mismatched_shapes_and_the_cuda_wrapper_cpu_tensors():
         ops.swa_attention(q, k.double(), v, 16)
     with pytest.raises(ValueError, match="cpu"):
         ops.swa_attention_cuda(q, k, v, 16)
+
+
+def _tensor_core_emulation(q, k, v, window: int, split: bool):
+    """The bf16 kernel's arithmetic in plain PyTorch, (B, H, S, D) layout:
+    bf16 q and k with exact products summed in fp32, the fp32 softmax, and
+    p v on bf16 operands with fp32 sums: p as ``p_hi + p_lo``, both bf16,
+    in one fp32 sum of two products (``split``), or p rounded to bf16
+    alone."""
+    s, d = q.shape[2], q.shape[3]
+    n_rep = q.shape[1] // k.shape[1]
+    k, v = (torch.repeat_interleave(t, n_rep, dim=1).float() for t in (k, v))
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) / math.sqrt(d)
+    pos = torch.arange(s)
+    rel = pos[:, None] - pos[None, :]
+    scores = scores.masked_fill(~((rel >= 0) & (rel < window)), -math.inf)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    p_hi = p.bfloat16().float()
+    if split:
+        p_lo = (p - p_hi).bfloat16().float()
+        o = torch.einsum("bhqk,bhkd->bhqd", torch.cat([p_hi, p_lo], -1),
+                         torch.cat([v, v], 2))
+    else:
+        o = torch.einsum("bhqk,bhkd->bhqd", p_hi, v)
+    return (o / l).bfloat16()
+
+
+def _ulps_where_large(got, want):
+    """max |got - want| in bf16 ulps of want over |want| >= 2^-8, and
+    whether every element is within 1 ulp + 2e-5."""
+    got, want = got.float().numpy(), want.float().numpy()
+    err, ulp = np.abs(got - want), bf16_ulp(want)
+    big = np.abs(want) >= 2.0 ** -8
+    return float((err[big] / ulp[big]).max()), bool((err <= ulp + FP32_ATOL).all())
+
+
+def _split_inputs(case):
+    """bf16 q, k, v in (B, H, S, D) and the JAX package's reference
+    output on the same values, as a torch tensor."""
+    b, s, hq, hkv, d, w = case
+    (q, k, v), (jq, jk, jv) = _both(_qkv(b, s, hq, hkv, d, seed=s + w),
+                                    "bfloat16")
+    want = jax_ref.swa_attention_ref(*(jnp.swapaxes(t, 1, 2)
+                                       for t in (jq, jk, jv)), w)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    return (*(t.transpose(1, 2) for t in (q, k, v)), want)
+
+
+SPLIT_CASES = [(1, 512, 2, 1, 64, 128), (2, 256, 4, 1, 32, 64),
+               (1, 256, 4, 1, 256, 128)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_split_probabilities_keep_the_bf16_rule(case):
+    """p = p_hi + p_lo in bf16 leaves |p - p_hi - p_lo| <= 2^-18 p: the
+    emulated kernel stays within 1 bf16 ulp of the JAX reference where
+    |reference| >= 2^-8, and within 1 ulp + 2e-5 everywhere."""
+    w = case[-1]
+    q, k, v, want = _split_inputs(case)
+    got = _tensor_core_emulation(q, k, v, w, split=True)
+    ulps, within = _ulps_where_large(got, want)
+    assert ulps <= 1 and within, ulps
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_plain_bf16_probabilities_break_the_bf16_rule(case):
+    """Why the kernel splits p: rounding p to bf16 alone (the dense
+    sliding path's function) lands tens of ulps off the JAX reference."""
+    w = case[-1]
+    q, k, v, want = _split_inputs(case)
+    got = _tensor_core_emulation(q, k, v, w, split=False)
+    ulps, _ = _ulps_where_large(got, want)
+    assert ulps > 8, ulps
