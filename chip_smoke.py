@@ -14,12 +14,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      its tensor-core instantiations)
   3. the fused corrected-step kernel (B1) against its plain version
   4. the fused heavy-ball kernel (B2) against its plain version
-  5. the K-step local-loop kernel (B3) against its plain version
-  6. the heavy-ball K-step kernel (B4) against its plain version
+  5. the K-step local-loop kernel (B3) against its plain version, A fresh
+     and broadcast, resident and streaming (d 3000), each case launched
+     twice and bitwise equal; fails if a launch ran on one block
+  6. the heavy-ball K-step kernel (B4), the same checks
   7. the sliding-window attention kernel (B5) against its plain version;
      its tensor-core instructions counted in the built library's SASS;
-     timed at gemma3-1b's "W" layer beside its bound and SDPA, by device
-     time (profiler) and per call (CUDA events)
+     timed at gemma3-1b's "W" layer beside its bound and SDPA, by card
+     time (``card_ms``) and per call (CUDA events)
   8. a 2-layer fp32 llama, one SCAFFOLD round on the card vs the CPU
   9. a 2-layer fp32 gemma3 at seq 128 (its "W" layer through B5), one
      SCAFFOLD round on the card vs the CPU
@@ -33,9 +35,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
   12. the LM momentum path: the same widths, local heavy-ball through B2,
      the slot rows carried across rounds in the solver store, B2 timed
   13. the quadratics slice: the K-step kernel path and the per-step fused
-     path, launch counts and agreement, B3 timed
+     path, launch counts, launch plans (more than one block) and
+     agreement, a profiled fourth round; B3 timed in both layouts of A
+     beside its bound and its grid's K barriers alone
   14. quadratics, heavy-ball (scaffold_m, local momentum): the B4 path and
-     the per-step B2 path, launch counts and agreement, B4 timed
+     the per-step B2 path, launch counts, plans and agreement, B4 timed
   15. quadratics, sgd_sched (cosine) with server adam through B3; local
      adam and fedprox fall back to the per-step path by the reference's
      reasons
@@ -78,9 +82,14 @@ HOST_MEMORY_LIMIT = 85e9
 # HBM3, 700 W; 3x room)
 B4_FLIPPED_BOUND = 2e-3
 # B3 vs plain, bf16 y: the losses' bound in a case where y's bf16 rounding
-# flipped. B3 has shown no flip on the card yet; B4's measured bound is
-# taken (B3 is B4 without the slot, so a flip moves its losses less)
-B3_FLIPPED_BOUND = B4_FLIPPED_BOUND
+# flipped (2.72e-4 the largest, its first flip, on the cooperative grid:
+# bf16 y, fp32 A,b, H100 80GB HBM3, 700 W; 3x room)
+B3_FLIPPED_BOUND = 8.2e-4
+# (d, K, bsz) of B3's and B4's checks: the JAX package's widths, the
+# trainer's d 1024, and one width past the resident slabs (both layouts
+# stream at d 3000, in three column chunks)
+LOOP_SHAPES = tuple((d, K, bsz) for d in (20, 1000, 1024) for K in (1, 10)
+                    for bsz in (1, 2)) + ((3000, 2, 2),)
 B1_REPLACES = "src/repro/kernels/scaffold_update/kernel.py:46"
 B2_REPLACES = "src/repro/kernels/scaffold_update/kernel.py:73"
 B3_REPLACES = "src/repro/kernels/scaffold_update/megakernel.py:108"
@@ -114,12 +123,15 @@ B5_LAYER = B5_CASES[4]  # gemma3-1b's "W" layer at batch 1, the timed shape
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0 and forget the K-step loops'
+    launch plans."""
+    from repro_torch.kernels.scaffold_update import megakernel as mk
     from repro_torch.kernels.scaffold_update import ops
     from repro_torch.kernels.swa_attention import ops as swa_ops
 
     ops.reset_launches()
     swa_ops.reset_launches()
+    mk.reset_plans()
 
 
 def launches() -> dict:
@@ -165,55 +177,31 @@ def cuda_ms(fn, iters: int, flush=None) -> float:
     return total / iters
 
 
-def flush_kernels(flush) -> set:
-    """Names of the kernels that ``flush.zero_()`` launches (profiler)."""
-    return {e.key for e in _profiled_kernels(flush.zero_, 3, flush.zero_)}
-
-
-def _profiled_kernels(body, n: int, prime):
-    """Profiler averages of the device kernels that ``prime()`` and then
-    ``n`` calls of ``body()`` ran. The profiler can miss the first kernel
-    of a session, so ``prime`` launches one that is not counted."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # "Profiler clears events ..."
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            prime()
-            torch.cuda.synchronize()
-            for _ in range(n):
-                body()
-            torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if _device_time_ms(e) > 0]
-
-
-def device_ms(fn, iters: int, flush, fill: set) -> float:
-    """Mean device milliseconds of one ``fn()``: the summed durations on
-    the card of the kernels it ran (torch.profiler), over ``iters`` calls,
-    each after ``flush.zero_()`` overwrote the L2 cache. The flush's own
-    kernels (names ``fill``, one more from the session's primer, which the
-    profiler may miss) are left out. Each of ``fn``'s kernels must count a
-    multiple of ``iters``, so that none was missed or taken for a
-    flush."""
+def card_ms(fn, iters: int, flush, spin: int) -> float:
+    """Mean milliseconds the card spends on one ``fn()`` by CUDA events,
+    after one warm-up call: before each call ``flush.zero_()`` overwrites
+    the L2 cache and the stream then spins ``spin`` clock cycles
+    (``torch.cuda._sleep``), so that the host has queued the whole call
+    before the card reaches the first event and the events time the
+    card's work (with its launch gaps), not the host's. (torch.profiler's
+    kernel durations, read here before, lost launches and then whole
+    sessions in some runs on an H100.)"""
     import torch
 
     fn()
     torch.cuda.synchronize()
-
-    def body():
+    total = 0.0
+    for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(spin)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
         fn()
-
-    evs = _profiled_kernels(body, iters, flush.zero_)
-    n_fill = sum(e.count for e in evs if e.key in fill)
-    mine = [e for e in evs if e.key not in fill]
-    if n_fill not in (iters, iters + 1) or not mine or any(
-            e.count % iters for e in mine):
-        raise AssertionError(
-            f"device_ms: {n_fill} flush kernels in {iters} calls; "
-            + "; ".join(f"{e.key[:60]} x{e.count}" for e in evs))
-    return sum(_device_time_ms(e) for e in mine) / iters
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
 
 
 def in_turns(kernel, plain, turns: int, k_iters: int, p_iters: int,
@@ -483,128 +471,131 @@ def _b3_inputs(gen, d, K, bsz, ty, tab):
     return y, corr, eta, A, b
 
 
+def _plans(name: str) -> str:
+    """The plans kernel ``name`` launched since the last reset, one
+    ``grid x rows, chunk, resident|streaming: launches``
+    each; raises if one of them is a single block."""
+    from repro_torch.kernels.scaffold_update import megakernel as mk
+
+    plans = mk.PLANS[name]
+    one = [p for p in plans if p.grid < 2]
+    if not plans or one:
+        raise AssertionError(f"{name}: plans {dict(plans)}; a launch on "
+                             f"one block (or none launched)")
+    return "; ".join(
+        f"d {p.d}: {p.grid} blocks x {p.rows} rows, chunk {p.chunk}, "
+        + ("resident" if p.resident else "streaming")
+        + f", {p.smem_bytes} B shared: x{n}"
+        for p, n in sorted(plans.items(), key=lambda t: (t[0].d,
+                                                         t[0].resident)))
+
+
+def _check_local_loop(name, seed, tabs, beta, flipped_bound):
+    """B3 (``beta`` None) or B4 against its plain version in y fp32/bf16 x
+    A,b dtypes ``tabs`` x LOOP_SHAPES x A fresh/broadcast, each launched
+    twice (bitwise equal); returns the largest errors of m_K and losses in
+    the cases whose bf16 y_K shows a flipped rounding."""
+    import torch
+
+    from repro_torch.kernels.scaffold_update import megakernel as mk
+    from repro_torch.kernels.scaffold_update import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f32, bf16 = torch.float32, torch.bfloat16
+    outs = ("y_K", "losses") if beta is None else ("y_K", "m_K", "losses")
+    lines, failed, flipped_worst = [], [], [0.0] * (len(outs) - 1)
+    reset_launches()
+    for ty in (f32, bf16):
+        for tab in tabs:
+            worst, flipped, n = [0.0] * len(outs), 0, 0
+            for d, K, bsz in LOOP_SHAPES:
+                y, corr, eta, A, b = _b3_inputs(gen, d, K, bsz, ty, tab)
+                kw = {} if beta is None else dict(
+                    m=torch.randn(d, generator=gen, device="cuda"),
+                    beta=beta)
+                layouts = {"fresh": (A, b), "broadcast": (
+                    A[:1, :1].expand(K, bsz, d, d),
+                    b[:1, :1].expand(K, bsz, d))}
+                for layout, (AA, bb) in layouts.items():
+                    got = mk.scaffold_local_loop_cuda(y, corr, eta, AA, bb,
+                                                      **kw)
+                    again = mk.scaffold_local_loop_cuda(y, corr, eta, AA, bb,
+                                                        **kw)
+                    want = ref.scaffold_local_loop_ref(y, corr, eta, AA, bb,
+                                                       **kw)
+                    torch.cuda.synchronize()
+                    got, again, want = ([t for t in r if t is not None]
+                                        for r in (got, again, want))
+                    same = all(torch.equal(a, c) for a, c in zip(got, again))
+                    # fp32 y: summation order only, 1e-5. bf16 y is rounded
+                    # to bf16 every step from fp32 values that differ by
+                    # the summation order (~1e-7 relative), so a rounding
+                    # rarely flips: y_K then differs by up to 2 bf16 ulps
+                    # at max|y|, and every later g, hence m_K and the
+                    # losses, moves too. A case with no flip (y_K equal)
+                    # holds them to 1e-5; a flipped case takes
+                    # ``flipped_bound``.
+                    scale = float(want[0].float().abs().max())
+                    bound = (1e-5 if ty == f32
+                             else 2 * bf16_ulp(scale) / scale)
+                    errs = [rel_err(g, w) for g, w in zip(got, want)]
+                    flip = ty == bf16 and errs[0] > 0
+                    bound_rest = flipped_bound if flip else 1e-5
+                    flipped += flip
+                    n += 1
+                    if flip:
+                        flipped_worst = [max(w, e) for w, e in
+                                         zip(flipped_worst, errs[1:])]
+                    lines.append(
+                        f"d={d} K={K} bsz={bsz} y {ty} A,b {tab} {layout}: "
+                        + ", ".join(f"{o} {e:.2e}" for o, e in
+                                    zip(outs, errs))
+                        + f" (bounds y_K {bound:.2e}, rest {bound_rest:.2g}"
+                        + f"{', y_K flipped' if flip else ''}); two runs "
+                        + ("bitwise equal" if same else "DIFFER"))
+                    if errs[0] > bound or max(errs[1:]) > bound_rest or (
+                            not same):
+                        failed.append(lines[-1])
+                    worst = [max(w, e) for w, e in zip(worst, errs)]
+            log(f"{name} y {ty} A,b {tab}"
+                f"{'' if beta is None else f', beta {beta}'}: {n} cases "
+                f"({len(LOOP_SHAPES)} d/K/bsz shapes x A fresh/broadcast),"
+                f" each launched twice, bitwise equal; worst rel err "
+                + ", ".join(f"{o} {w:.2e}" for o, w in zip(outs, worst))
+                + " (bounds "
+                + ("1e-5 for all)" if ty == f32 else
+                   f"y_K 2 bf16 ulps of max|y|; the rest 1e-5, "
+                   f"{flipped_bound:.2g} in the {flipped} of {n} cases whose"
+                   f" y_K shows a flipped bf16 rounding)"))
+    log(f"{name} plans: {_plans(name)}")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / f"{name}_cases.txt").write_text("\n".join(lines) + "\n")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return flipped_worst
+
+
 def phase_b3_plain():
     """Phase 5: the K-step loop kernel against its plain version."""
     import torch
 
-    from repro_torch.kernels.scaffold_update import megakernel as mk
-    from repro_torch.kernels.scaffold_update import ref
-
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    f32, bf16 = torch.float32, torch.bfloat16
-    lines, failed = [], []
-    for ty in (f32, bf16):
-        for tab in (f32, bf16):
-            worst_y = worst_l = 0.0
-            flipped = 0
-            for d in (20, 1000, 1024):
-                for K in (1, 10):
-                    for bsz in (1, 2):
-                        y, corr, eta, A, b = _b3_inputs(gen, d, K, bsz, ty,
-                                                        tab)
-                        yk, _, lk = mk.scaffold_local_loop_cuda(
-                            y, corr, eta, A, b)
-                        yp, _, lp = ref.scaffold_local_loop_ref(y, corr, eta,
-                                                                A, b)
-                        torch.cuda.synchronize()
-                        # fp32 y: summation order only, 1e-5. bf16 y is
-                        # rounded to bf16 every step from fp32 values that
-                        # differ by the summation order (~1e-7 relative),
-                        # so a rounding rarely flips: y_K then differs by
-                        # up to 2 bf16 ulps at max|y|, and every later g,
-                        # hence the losses, moves too. A case with no flip
-                        # (y_K equal) holds the losses to 1e-5; a flipped
-                        # case takes B3_FLIPPED_BOUND.
-                        scale = float(yp.float().abs().max())
-                        bound = (1e-5 if ty == f32
-                                 else 2 * bf16_ulp(scale) / scale)
-                        ey, el = rel_err(yk, yp), rel_err(lk, lp)
-                        flip = ty == bf16 and ey > 0
-                        bound_l = B3_FLIPPED_BOUND if flip else 1e-5
-                        flipped += flip
-                        lines.append(f"d={d} K={K} bsz={bsz} y {ty} A,b {tab}:"
-                                     f" rel err y_K {ey:.2e} (bound "
-                                     f"{bound:.2e}), losses {el:.2e} (bound "
-                                     f"{bound_l:.0e}"
-                                     f"{', y_K flipped' if flip else ''})")
-                        if ey > bound or el > bound_l:
-                            failed.append(lines[-1])
-                        worst_y, worst_l = max(worst_y, ey), max(worst_l, el)
-            log(f"scaffold_local_loop y {ty} A,b {tab}: 12 shapes (d 20/1000/"
-                f"1024, K 1/10, bsz 1/2), worst rel err y_K {worst_y:.2e}, "
-                f"losses {worst_l:.2e} (bounds "
-                + ("1e-5 for both)" if ty == f32 else
-                   f"y_K 2 bf16 ulps of max|y|; losses 1e-5, "
-                   f"{B3_FLIPPED_BOUND:.0e} in the {flipped} of 12 cases "
-                   f"whose y_K shows a flipped bf16 rounding)"))
-    OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "b3_cases.txt").write_text("\n".join(lines) + "\n")
-    if failed:
-        raise AssertionError("; ".join(failed))
+    worst = _check_local_loop("scaffold_local_loop", 2,
+                              (torch.float32, torch.bfloat16), None,
+                              B3_FLIPPED_BOUND)
+    log(f"scaffold_local_loop: largest losses error in a flipped bf16 case "
+        f"{worst[0]:.2e} (bound {B3_FLIPPED_BOUND:.2g})")
 
 
 def phase_b4_plain():
     """Phase 6: the heavy-ball K-step loop kernel against its plain
-    version, on fresh and broadcast A."""
+    version."""
     import torch
 
-    from repro_torch.kernels.scaffold_update import megakernel as mk
-    from repro_torch.kernels.scaffold_update import ref
-
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    f32, bf16 = torch.float32, torch.bfloat16
-    beta, lines, failed = 0.9, [], []
-    for ty in (f32, bf16):
-        worst, flipped = [0.0, 0.0, 0.0], 0
-        for d in (20, 1000, 1024):
-            for K in (1, 10):
-                for bsz in (1, 2):
-                    y, corr, eta, A, b = _b3_inputs(gen, d, K, bsz, ty, f32)
-                    m = torch.randn(d, generator=gen, device="cuda")
-                    layouts = {"fresh": (A, b), "broadcast": (
-                        A[:1, :1].expand(K, bsz, d, d),
-                        b[:1, :1].expand(K, bsz, d))}
-                    for layout, (AA, bb) in layouts.items():
-                        yk, mk_, lk = mk.scaffold_local_loop_cuda(
-                            y, corr, eta, AA, bb, m=m, beta=beta)
-                        yp, mp, lp = ref.scaffold_local_loop_ref(
-                            y, corr, eta, AA, bb, m=m, beta=beta)
-                        torch.cuda.synchronize()
-                        # y_K as for B3; m_K and the losses (fp32) to
-                        # 1e-5. bf16 y: where a rounding of y flipped
-                        # (y_K differs, within its bound) every later g,
-                        # hence m and the losses, moves by up to ~7e-4
-                        # (H100, beta 0.9); such a case takes
-                        # B4_FLIPPED_BOUND
-                        scale = float(yp.float().abs().max())
-                        bound = (1e-5 if ty == f32
-                                 else 2 * bf16_ulp(scale) / scale)
-                        errs = (rel_err(yk, yp), rel_err(mk_, mp),
-                                rel_err(lk, lp))
-                        flip = ty == bf16 and errs[0] > 0
-                        bound_ml = B4_FLIPPED_BOUND if flip else 1e-5
-                        flipped += flip
-                        lines.append(
-                            f"d={d} K={K} bsz={bsz} y {ty} A {layout}: rel "
-                            f"err y_K {errs[0]:.2e} (bound {bound:.2e}), m_K"
-                            f" {errs[1]:.2e}, losses {errs[2]:.2e} (bound "
-                            f"{bound_ml:.0e}{', y_K flipped' if flip else ''}"
-                            f")")
-                        if errs[0] > bound or max(errs[1:]) > bound_ml:
-                            failed.append(lines[-1])
-                        worst = [max(w, e) for w, e in zip(worst, errs)]
-        log(f"scaffold_momentum_local_loop y {ty}, A,b fp32, beta {beta}: 24 "
-            f"cases (d 20/1000/1024, K 1/10, bsz 1/2, A fresh/broadcast), "
-            f"worst rel err y_K {worst[0]:.2e}, m_K {worst[1]:.2e}, losses "
-            f"{worst[2]:.2e} (bounds "
-            + ("1e-5 for all three)" if ty == f32 else
-               f"y_K 2 bf16 ulps of max|y|; m_K and losses 1e-5, "
-               f"{B4_FLIPPED_BOUND:.0e} in the {flipped} of 24 cases whose "
-               f"y_K shows a flipped bf16 rounding)"))
-    OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "b4_cases.txt").write_text("\n".join(lines) + "\n")
-    if failed:
-        raise AssertionError("; ".join(failed))
+    worst = _check_local_loop("scaffold_momentum_local_loop", 6,
+                              (torch.float32,), 0.9, B4_FLIPPED_BOUND)
+    log(f"scaffold_momentum_local_loop: largest m_K, losses errors in a "
+        f"flipped bf16 case {worst[0]:.2e}, {worst[1]:.2e} (bound "
+        f"{B4_FLIPPED_BOUND:.2g})")
 
 
 def _swa_inputs(gen, b, s, hq, hkv, d, dtype):
@@ -700,7 +691,6 @@ def phase_b5_plain(result):
     err = float((swa_ops.swa_attention_cuda(q, k, v, w).float()
                  - plain.float()).abs().max())
     flush = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
-    fill = flush_kernels(flush)
 
     def kernel():
         return swa_ops.swa_attention_cuda(q, k, v, w)
@@ -727,15 +717,18 @@ def phase_b5_plain(result):
         lib_err = float((sdpa().transpose(1, 2).float()
                          - plain.float()).abs().max())
         lib_all = [cuda_ms(sdpa, 20, flush=flush) for _ in range(4)]
-        # device time, the yardstick: the kernels' own durations, without
-        # the wrapper's host work that the per-call events also hold;
-        # in turns (B5, SDPA, plain, then the reverse)
+        # card time, the yardstick: the card's work a call, without the
+        # wrapper's host work that the per-call events also hold (the
+        # plain version queues its kernels for ~1 ms: a longer spin); in
+        # turns (B5, SDPA, plain, then the reverse)
         dev = {"kernel": [], "sdpa": [], "plain": []}
-        sides = (("kernel", kernel, 20), ("sdpa", sdpa, 20),
-                 ("plain", plain_fn, 5))
+        sides = (("kernel", kernel, 20, 1_000_000),
+                 ("sdpa", sdpa, 20, 1_000_000),
+                 ("plain", plain_fn, 5, 10_000_000))
         for turn in range(4):
-            for name, fn, iters in (sides if turn % 2 == 0 else sides[::-1]):
-                dev[name].append(device_ms(fn, iters, flush, fill))
+            for name, fn, iters, spin in (sides if turn % 2 == 0
+                                          else sides[::-1]):
+                dev[name].append(card_ms(fn, iters, flush, spin))
     log(f"SDPA with the band mask, enable_gqa, L2 flushed, per call (CUDA "
         f"events): pinned to CUDNN_ATTENTION {spread(lib_all)}; unpinned "
         f"dispatch {spread(default_all)}")
@@ -750,7 +743,7 @@ def phase_b5_plain(result):
     k_ms, p_ms, lib_ms = (statistics.median(dev[n])
                           for n in ("kernel", "plain", "sdpa"))
     log(f"swa_attention gemma3-1b W layer (B {b}, S {s}, {hq}q/{hkv}kv heads"
-        f" x {d}, W {w}) bf16, L2 flushed. Device time (profiler): kernel "
+        f" x {d}, W {w}) bf16, L2 flushed. Card time a call: kernel "
         f"{spread(dev['kernel'])}, plain {spread(dev['plain'])}, SDPA with "
         f"the band mask (cuDNN) {spread(dev['sdpa'])}; B5 leads SDPA "
         f"{lib_ms / k_ms:.2f}x. Per call (CUDA events): kernel "
@@ -758,7 +751,7 @@ def phase_b5_plain(result):
         f"{spread(lib_all)}. Bound {bound:.4f} ms by {bound_by} ({pairs} "
         f"pairs a head, {flops / 1e9:.2f} GFLOP = {t_ops * 1e3:.2f} us at "
         f"989 TFLOP/s; {nbytes / 1e6:.2f} MB = {t_bytes * 1e3:.2f} us at "
-        f"3.35 TB/s); {flops / k_ms / 1e9:.1f} TFLOP/s by device time; max "
+        f"3.35 TB/s); {flops / k_ms / 1e9:.1f} TFLOP/s by card time; max "
         f"|kernel - plain| {err:.3e}, |SDPA - plain| {lib_err:.3e}")
     result["b5"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                         bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
@@ -910,38 +903,55 @@ def _device_time_ms(ev) -> float:
     return us / 1e3
 
 
-def _profile_round(tr, tag: str, kernels=()) -> None:
+def _profile_round(tr, tag: str, kernels=(), want=None, tries=1) -> None:
     """One more round of trainer ``tr`` under the profiler: logs the wall
     time, the device busy share, the top device times by kernel and the
     device time of each kernel whose name holds one of ``kernels``; writes
-    the table to ``OUT/<tag>_profile.txt``."""
+    the table to ``OUT/<tag>_profile.txt``. ``want`` maps a name to the
+    launches a round makes: a profile that saw fewer lost events (on an
+    H100 a quadratic round's profile lost its first B3 launch and its
+    upload of A in one run of three), and another round is profiled, at
+    most ``tries`` in all; the last is logged either way."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.run_round()
+    for attempt in range(tries):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    avgs = prof.key_averages()
-    # device-side events only (kernels, copies): CPU ops also carry the
-    # device time of the kernels they launched
-    dev_events = [e for e in avgs if _device_time_ms(e) > 0
-                  and "CUDA" in str(getattr(e, "device_type", ""))]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # the profiler can miss a session's first device events: a
+            # 1-element kernel goes first
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run_round()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        avgs = prof.key_averages()
+        # device-side events only (kernels, copies): CPU ops also carry
+        # the device time of the kernels they launched
+        dev_events = [e for e in avgs if _device_time_ms(e) > 0
+                      and "CUDA" in str(getattr(e, "device_type", ""))]
+        seen = {k: sum(e.count for e in dev_events if k in e.key)
+                for k in (want or {})}
+        if all(seen[k] >= n for k, n in (want or {}).items()):
+            break
+        log(f"{tag} profiled round {attempt + 1} of {tries} lost events: "
+            f"launches seen {seen}, made {want}")
     busy = sum(_device_time_ms(e) for e in dev_events) / 1e3
     top = sorted(dev_events, key=_device_time_ms, reverse=True)[:8]
     if busy > 0:
-        log(f"{tag} profiled round: wall {wall:.3f} s, device busy "
-            f"{busy:.3f} s ({100 * busy / wall:.1f}%); device time by kernel: "
-            + "; ".join(f"{e.key[:60]} {_device_time_ms(e):.1f} ms "
+        log(f"{tag} profiled round (try {attempt + 1} of {tries}): wall "
+            f"{wall:.3f} s, device busy "
+            f"{busy:.4f} s ({100 * busy / wall:.1f}%); device time by "
+            f"kernel: "
+            + "; ".join(f"{e.key[:60]} {_device_time_ms(e):.3f} ms "
                         f"x{e.count}" for e in top))
         for name in kernels:
             mine = [e for e in dev_events if name in e.key]
             log(f"{tag} profiled round: {name} "
-                f"{sum(_device_time_ms(e) for e in mine):.1f} ms device time"
-                f" x{sum(e.count for e in mine)}")
+                f"{sum(_device_time_ms(e) for e in mine):.3f} ms device "
+                f"time x{sum(e.count for e in mine)}")
     else:
         log(f"{tag} profiled round: wall {wall:.3f} s, device busy share not "
             f"measured (the profiler reported no device time)")
@@ -1235,17 +1245,20 @@ def phase_lm_momentum(result):
     torch.cuda.empty_cache()
 
 
-def _quad_paths(ds, spec, runs, b_keys, rounds=3):
+def _quad_paths(ds, spec, runs, b_keys, rounds=3, profile=None):
     """Train ``spec`` on ``ds`` once per ``(name, changes, launches)`` run
     on the card, the launch counts set to 0 just before each run and read
     just after; each round is timed alone (the suboptimality is evaluated
     on the host after it). Raises unless the counts of ``b_keys`` equal
-    ``launches`` and every other count is 0. Returns ``{name: final x}``
-    and ``{name: counts of b_keys}``."""
+    ``launches`` and every other count is 0, or if a K-step loop launched
+    on one block. The run named ``profile`` then trains one more round
+    under the profiler. Returns ``{name: final x}`` and ``{name: counts
+    of b_keys}``."""
     import torch
 
     from repro_torch.core import FederatedTrainer
     from repro_torch.data import quadratic_loss
+    from repro_torch.kernels.scaffold_update import megakernel as mk
 
     xs, counts = {}, {}
     for name, changes, want in runs:
@@ -1275,19 +1288,31 @@ def _quad_paths(ds, spec, runs, b_keys, rounds=3):
         if got != want or others:
             raise AssertionError(f"quad {name}: launches {counts_now}, "
                                  f"want {dict(zip(b_keys, want))}")
+        for k, n in zip(b_keys, got):
+            if n and k in mk.PLANS:
+                log(f"quad {name}: {k} plans: {_plans(k)}")
         if not all(math.isfinite(v) for v in subs):
             raise AssertionError(f"quad {name}: suboptimality {subs}")
         xs[name], counts[name] = tr.x["x"].cpu(), got
+        if name == profile:
+            _profile_round(tr, "quad_" + re.sub(r"\W+", "_", name),
+                           kernels=("grid_loop_kernel",),
+                           want={"grid_loop_kernel": sp.num_sampled},
+                           tries=3)
     return xs, counts
 
 
 def _time_local_loop(ds, beta=None):
     """B3 (or B4 with ``beta``) at d=1024, K=10, bsz=1, fp32, in two
-    layouts of A: "fresh", a distinct A per step (the bound of the kernels
-    line: K*d*d*4 bytes), and "broadcast", the trainer's own stride-0 view
-    of one client's A (quadratics.round_batches), which reads 4 MB once
-    and then from L2. Kernel and plain version in alternating turns, L2
-    flushed before each call. Returns the fresh layout's numbers."""
+    layouts of A: "fresh", a distinct A per step (the kernels line's
+    ``bound_ms``: K*d*d*4 bytes), and "broadcast", the trainer's own
+    stride-0 view of one client's A (quadratics.round_batches), whose
+    bound counts its 4 MB once. The card's time a call (``card_ms``, L2
+    flushed) of the kernel, of K grid barriers alone on its grid
+    (``megakernel.barrier_floor``: the design's floor) and of the plain
+    version, in alternating turns; the kernel's per-call CUDA-event time
+    without the spin beside them (``tools/local_loop_probe.py`` splits
+    the time further). Returns the numbers of the kernels line."""
     import numpy as np
     import torch
 
@@ -1304,29 +1329,50 @@ def _time_local_loop(ds, beta=None):
     layouts = {"fresh": (A, b, K * d * d * 4 + K * d * 4),
                "broadcast": (view["A"][0], view["b"][0], d * d * 4 + d * 4)}
     flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     name = "scaffold_local_loop" if beta is None else (
         "scaffold_momentum_local_loop")
-    out = None
+    # spin cycles before a timed call: ~0.5 ms at the H100's clocks, far
+    # above the kernel wrapper's host time; the plain version queues ~100
+    # kernels, ~2 ms of host work, so it waits ~5 ms
+    spin = {"plain": 10_000_000}
+    out = {}
     for layout, (A, b, a_bytes) in layouts.items():
-        yk = mk.scaffold_local_loop_cuda(y, corr, eta, A, b, **kw)[0]
-        yp = ref.scaffold_local_loop_ref(y, corr, eta, A, b, **kw)[0]
-        err = float((yk - yp).abs().max())
-        k_all, p_all = in_turns(
-            lambda: mk.scaffold_local_loop_cuda(y, corr, eta, A, b, **kw),
-            lambda: ref.scaffold_local_loop_ref(y, corr, eta, A, b, **kw),
-            turns=6, k_iters=5, p_iters=2, flush=flush)
+        plan = mk.local_loop_plan(d, K, A.stride(0), sms)
+        fns = {
+            "kernel": lambda: mk.scaffold_local_loop_cuda(y, corr, eta, A, b,
+                                                          **kw),
+            "plain": lambda: ref.scaffold_local_loop_ref(y, corr, eta, A, b,
+                                                         **kw),
+            "K barriers": lambda: mk.barrier_floor(plan, K, "cuda")}
+        err = float((fns["kernel"]()[0] - fns["plain"]()[0]).abs().max())
+        dev = {k: [] for k in fns}
+        for turn in range(4):
+            for k in (list(fns) if turn % 2 == 0 else list(fns)[::-1]):
+                dev[k].append(card_ms(fns[k], 3 if k == "plain" else 10,
+                                      flush, spin.get(k, 1_000_000)))
+        per_call = cuda_ms(fns["kernel"], 20, flush=flush)
         # bytes: A and b read once, y and corr (and m) read, y_K (and m_K)
         # and the losses written
         nbytes = a_bytes + (4 if beta is None else 6) * d * 4 + K * 4
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"{name} d={d} K={K} bsz=1 fp32, A {layout}: kernel "
-            f"{spread(k_all)}, plain {spread(p_all)}, bound {bound:.4f} ms "
-            f"(bytes, {nbytes / 1e6:.2f} MB, L2 flushed), max |y_K kernel - "
-            f"plain| {err:.3e}")
-        if layout == "fresh":
-            out = dict(max_abs_err=err, ms=statistics.median(k_all),
-                       plain_ms=statistics.median(p_all), bound_ms=bound)
-    return out
+        med = {k: statistics.median(v) for k, v in dev.items()}
+        log(f"{name} d={d} K={K} bsz=1 fp32, A {layout}, {plan.grid} blocks"
+            f" x {plan.rows} rows, "
+            f"{'resident' if plan.resident else 'streaming'}: card time a "
+            f"call, kernel {spread(dev['kernel'])}, plain "
+            f"{spread(dev['plain'])}, {K} grid barriers alone "
+            f"{spread(dev['K barriers'])}; kernel per call with no spin "
+            f"(CUDA events) {per_call:.4f} ms; bound {bound:.4f} ms (bytes, "
+            f"{nbytes / 1e6:.2f} MB, L2 flushed); max |y_K kernel - plain| "
+            f"{err:.3e}")
+        out[layout] = dict(err=err, bound=bound, **med)
+    fresh, bcast = out["fresh"], out["broadcast"]
+    return dict(max_abs_err=max(fresh["err"], bcast["err"]),
+                ms=fresh["kernel"], plain_ms=fresh["plain"],
+                bound_ms=fresh["bound"], broadcast_ms=bcast["kernel"],
+                broadcast_bound_ms=bcast["bound"],
+                barrier_floor_ms=bcast["K barriers"])
 
 
 def phase_quadratics(ds, result):
@@ -1338,7 +1384,7 @@ def phase_quadratics(ds, result):
     xs, counts = _quad_paths(ds, spec, (
         ("megakernel", dict(use_megakernel=True), (12, 0)),
         ("per_step_fused", {}, (0, 120))),
-        ("scaffold_local_loop", "scaffold_update"))
+        ("scaffold_local_loop", "scaffold_update"), profile="megakernel")
     err = rel_err(xs["megakernel"], xs["per_step_fused"])
     log(f"quad: final x, megakernel vs per-step fused path: rel err "
         f"{err:.2e} (bound 1e-4)")

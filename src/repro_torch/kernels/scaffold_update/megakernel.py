@@ -10,15 +10,25 @@ its eta table) is kernel B3; with an fp32 slot ``m`` the heavy-ball step
 ``m_K``. The JAX package's ``kernels/scaffold_update/megakernel.py`` is
 the reference.
 
+A launch is a cooperative grid over the card: ``local_loop_plan`` (pure,
+so the CPU tests reach it) gives each of G blocks R consecutive entries
+of y, says whether the slabs of A it needs stay resident in shared
+memory or stream, and sizes the shared memory against ``SMEM_LIMIT``.
+
 For tensors on the CPU it runs the plain version
 (``ref.scaffold_local_loop_ref``, also the CPU fast path of
 ``run_local_steps``); for CUDA tensors it launches the kernel or raises.
 Launches count in ``ops.LAUNCHES["scaffold_local_loop"]`` (B3) and
-``ops.LAUNCHES["scaffold_momentum_local_loop"]`` (B4).
+``ops.LAUNCHES["scaffold_momentum_local_loop"]`` (B4); ``PLANS`` counts
+the plans they launched with.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -29,6 +39,80 @@ from repro_torch.kernels.scaffold_update.ops import LAUNCHES
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+CHUNK_PAD = 4  # floats after each slab row in shared memory (kPad)
+MIN_CHUNK = 32  # narrowest streamed chunk: one column a lane of a warp
+NOT_CO_RESIDENT = -1  # the C entries' return for a grid that cannot fit
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopPlan:
+    """One launch's layout: ``grid`` blocks, block b owning entries
+    ``[b*rows, min(d, (b+1)*rows))`` of y; slabs of ``chunk`` columns,
+    ``resident`` (loaded once) or streamed each step; ``smem_bytes`` of
+    dynamic shared memory a block."""
+    d: int
+    grid: int
+    rows: int
+    chunk: int
+    resident: bool
+    smem_bytes: int
+
+
+# kernel name -> {plan: launches} since the last ``reset_plans``
+PLANS: Dict[str, collections.Counter] = {
+    "scaffold_local_loop": collections.Counter(),
+    "scaffold_momentum_local_loop": collections.Counter()}
+
+
+def reset_plans() -> None:
+    """Forget the plans launched so far."""
+    for c in PLANS.values():
+        c.clear()
+
+
+def grid_shape(d: int, sm_count: int) -> Tuple[int, int]:
+    """``(G, R)``: at most one block an SM and every block owning at
+    least one entry; R = ceil(d / min(sm_count, d)) consecutive entries a
+    block, the last block the rest."""
+    if d < 1 or sm_count < 1:
+        raise ValueError(f"grid_shape: d={d}, sm_count={sm_count}")
+    rows = -(-d // min(sm_count, d))
+    return -(-d // rows), rows
+
+
+def smem_bytes(rows: int, chunk: int) -> int:
+    """Dynamic shared memory of a block (``smem_floats`` in C, which
+    refuses a launch whose bytes differ): two slabs of ``rows`` x ``chunk + CHUNK_PAD`` floats, the y chunk,
+    and 6 ``rows`` floats (the row sums, y_I, corr_I, m_I, bm_I)."""
+    return 4 * (2 * rows * (chunk + CHUNK_PAD) + chunk + 6 * rows)
+
+
+def local_loop_plan(d: int, K: int, a_sk: int, sm_count: int) -> LoopPlan:
+    """The launch plan for width ``d`` and ``K`` steps whose A has K
+    stride ``a_sk`` (elements), on a card of ``sm_count`` SMs. Resident
+    when A is one matrix for all steps (``a_sk == 0`` or K 1) and both
+    slabs fit; otherwise the widest chunk (a multiple of ``MIN_CHUNK``)
+    that fits. Raises ValueError when not even a ``MIN_CHUNK`` chunk
+    fits."""
+    grid, rows = grid_shape(d, sm_count)
+    if (a_sk == 0 or K == 1) and smem_bytes(rows, d) <= SMEM_LIMIT:
+        return LoopPlan(d, grid, rows, d, True, smem_bytes(rows, d))
+    widest = (SMEM_LIMIT // 4 - 6 * rows - 2 * rows * CHUNK_PAD) // (
+        2 * rows + 1)
+    widest -= widest % MIN_CHUNK
+    if widest < MIN_CHUNK:
+        raise ValueError(
+            f"scaffold_local_loop: d={d} gives {rows} entries a block on "
+            f"{sm_count} SMs; a {MIN_CHUNK}-column chunk of its slabs needs "
+            f"{smem_bytes(rows, MIN_CHUNK)} B of shared memory, more than "
+            f"{SMEM_LIMIT}")
+    chunk = min(widest, d)
+    return LoopPlan(d, grid, rows, chunk, False, smem_bytes(rows, chunk))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _lib():
@@ -39,12 +123,32 @@ def _lib():
                        + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
                        + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
                        + [ctypes.c_void_p] + [ctypes.c_float]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                       + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.local_loop_smem_bytes.argtypes = [ctypes.c_int] * 2
-        lib.local_loop_smem_bytes.restype = ctypes.c_longlong
+        lib.local_loop_barrier_floor.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+        lib.local_loop_barrier_floor.restype = ctypes.c_int
     return lib
+
+
+def _check_launch(err: int, what: str, plan: LoopPlan) -> None:
+    if err == NOT_CO_RESIDENT:
+        raise RuntimeError(f"{what}: a cooperative grid of {plan.grid} "
+                           f"blocks with {plan.smem_bytes} B of shared "
+                           f"memory each cannot be co-resident on this card")
+    build.check(err, what)
+
+
+def barrier_floor(plan: LoopPlan, K: int, device) -> None:
+    """Launch K grid barriers, and nothing else, on ``plan``'s grid and
+    shared memory: the floor of the loop's design (not a B3/B4 launch)."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        err = lib.local_loop_barrier_floor(
+            plan.grid, K, plan.smem_bytes,
+            torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "local_loop_barrier_floor", plan)
 
 
 def scaffold_local_loop_cuda(y, corr, eta_table, A, b, *, m=None,
@@ -54,7 +158,9 @@ def scaffold_local_loop_cuda(y, corr, eta_table, A, b, *, m=None,
     d)`` and a ``(K,)`` eta table, all on one CUDA device; B4 with the
     ``(d,)`` fp32 slot ``m`` and ``beta``, B3 without. The K and bsz
     dimensions of A and b may be strided (broadcast views take no copy);
-    their inner blocks must be dense."""
+    their inner blocks must be dense. Raises ValueError for a width no
+    plan fits (``local_loop_plan``) and RuntimeError when the card
+    refuses the cooperative grid; nothing falls back."""
     K, bsz, d = A.shape[0], A.shape[1], A.shape[2]
     if y.dim() != 1 or y.shape[0] != d:
         raise ValueError(f"scaffold_local_loop: y shape {tuple(y.shape)}, "
@@ -85,19 +191,19 @@ def scaffold_local_loop_cuda(y, corr, eta_table, A, b, *, m=None,
                           or m.device != y.device or not m.is_contiguous()):
         raise ValueError("scaffold_local_loop: the slot m must be a dense "
                          "fp32 vector shaped like y, on y's device")
-    lib = _lib()
-    smem = lib.local_loop_smem_bytes(d, m is not None)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"scaffold_local_loop: d={d} needs {smem} B of "
-                         f"shared memory, more than {SMEM_LIMIT}")
     eta = torch.as_tensor(eta_table, dtype=torch.float32,
                           device=y.device).contiguous()
     if eta.shape != (K,):
         raise ValueError(f"scaffold_local_loop: eta table {tuple(eta.shape)}"
                          f" for K={K}")
+    plan = local_loop_plan(d, K, A.stride(0), _sm_count(y.device))
+    lib = _lib()
     y_out = torch.empty_like(y)
     m_out = None if m is None else torch.empty_like(m)
     losses = torch.empty(K, dtype=torch.float32, device=y.device)
+    # scratch: ybuf (2, d), then partials (K, grid)
+    scratch = torch.empty(2 * d + K * plan.grid, dtype=torch.float32,
+                          device=y.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -109,11 +215,15 @@ def scaffold_local_loop_cuda(y, corr, eta_table, A, b, *, m=None,
             A.data_ptr(), A.stride(0), A.stride(1),
             b.data_ptr(), b.stride(0), b.stride(1),
             eta.data_ptr(), float(beta), y_out.data_ptr(), ptr(m_out),
-            losses.data_ptr(), K, bsz, d, stream)
+            losses.data_ptr(), scratch.data_ptr(),
+            scratch.data_ptr() + 2 * d * 4, K, bsz,
+            d, plan.grid, plan.rows, plan.chunk, plan.resident,
+            plan.smem_bytes, stream)
     name = ("scaffold_local_loop" if m is None
             else "scaffold_momentum_local_loop")
-    build.check(err, name)
+    _check_launch(err, name, plan)
     LAUNCHES[name] += 1
+    PLANS[name][plan] += 1
     return y_out, m_out, losses
 
 

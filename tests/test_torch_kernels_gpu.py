@@ -8,7 +8,8 @@ import nothing of JAX, so they run on a GPU machine without it:
 Bounds: the fused corrected and heavy-ball updates (B1, B2) within 1 ulp
 of y's dtype and 0 ulp of the fp32 slot (they round each operation as
 the plain versions do); the K-step loops (B3, B4) in fp32 to rtol 1e-5
-(sums in another order); sliding-window attention (B5) in fp32 to 2e-5
+(sums in another order), on a cooperative grid of more than one block,
+two launches bitwise equal; sliding-window attention (B5) in fp32 to 2e-5
 absolute, in bf16 to 1 bf16 ulp of the plain element plus 2e-5 (both
 round an fp32 result once; the fp32 results differ by the order of their
 sums, which exceeds an ulp only below 2^-8).
@@ -23,11 +24,15 @@ from repro_torch.kernels.scaffold_update import ops, ref
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.kernels.swa_attention import ref as swa_ref
 
-pytestmark = [
-    pytest.mark.gpu,
-    pytest.mark.skipif(not torch.cuda.is_available(),
-                       reason="needs an NVIDIA GPU"),
-]
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _needs_a_card():
+    # decided when a test runs, never at import: every test of this file
+    # is collected alike on every machine
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
 
 
 def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -102,6 +107,128 @@ def test_local_loop_broadcast_views():
     yb, _, lb = mk.scaffold_local_loop_cuda(y, None, eta, A.contiguous(),
                                             b.contiguous())
     assert torch.equal(ya, yb) and torch.equal(la, lb)
+
+
+def _loop_inputs(d, K, bsz, layout, seed):
+    """y, corr, slot m, eta and A, b: a distinct A_k a step ("fresh") or
+    one (d, d) matrix viewed at stride 0 ("broadcast", the trainer's)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn(d, generator=gen, device="cuda")
+    corr = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    m = torch.randn(d, generator=gen, device="cuda")
+    eta = torch.linspace(0.1, 0.05, K, device="cuda")
+    if layout == "fresh":
+        A = torch.randn((K, bsz, d, d), generator=gen,
+                        device="cuda") / math.sqrt(d)
+        b = torch.randn((K, bsz, d), generator=gen, device="cuda")
+    else:
+        A = (torch.randn((d, d), generator=gen, device="cuda")
+             / math.sqrt(d))[None, None].expand(K, bsz, d, d)
+        b = torch.randn(d, generator=gen, device="cuda")[None, None].expand(
+            K, bsz, d)
+    return y, corr, m, eta, A, b
+
+
+def _loop_plan(d, K, A):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return mk.local_loop_plan(d, K, A.stride(0), sms)
+
+
+def _assert_loop_close(got, want):
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert float((g - w).abs().max()) <= 1e-5 * float(
+                w.abs().max())
+
+
+@pytest.mark.parametrize("slot", [False, True], ids=["B3", "B4"])
+@pytest.mark.parametrize("d", [20, 1000, 1024, 3000])
+@pytest.mark.parametrize("layout", ["fresh", "broadcast"])
+def test_local_loop_grid_matches_plain(layout, d, slot):
+    """Both layouts, resident (broadcast up to d 1024) and streaming (fresh
+    A, and d 3000 in chunks), on a grid of more than one block."""
+    K = 10 if d <= 1024 else 2
+    y, corr, m, eta, A, b = _loop_inputs(d, K, 2, layout, d + slot)
+    kw = dict(m=m, beta=0.9) if slot else {}
+    name = "scaffold_momentum_local_loop" if slot else "scaffold_local_loop"
+    plan = _loop_plan(d, K, A)
+    assert plan.grid > 1
+    assert plan.resident == (layout == "broadcast" and d <= 1024)
+    before, planned = ops.LAUNCHES[name], mk.PLANS[name][plan]
+    got = mk.scaffold_local_loop_cuda(y, corr, eta, A, b, **kw)
+    assert ops.LAUNCHES[name] == before + 1
+    assert mk.PLANS[name][plan] == planned + 1
+    _assert_loop_close(got, ref.scaffold_local_loop_ref(y, corr, eta, A, b,
+                                                        **kw))
+
+
+@pytest.mark.parametrize("slot", [False, True], ids=["B3", "B4"])
+@pytest.mark.parametrize("d,layout", [(1024, "broadcast"), (1024, "fresh"),
+                                      (3000, "fresh")])
+def test_local_loop_grid_is_deterministic(d, layout, slot):
+    """No atomics: two launches give the same bits, losses included."""
+    K = 10 if d <= 1024 else 2
+    y, corr, m, eta, A, b = _loop_inputs(d, K, 2, layout, 5)
+    kw = dict(m=m, beta=0.9) if slot else {}
+    one = mk.scaffold_local_loop_cuda(y, corr, eta, A, b, **kw)
+    two = mk.scaffold_local_loop_cuda(y, corr, eta, A, b, **kw)
+    for a, c in zip(one, two):
+        assert (a is None and c is None) or torch.equal(a, c)
+
+
+@pytest.mark.parametrize("d", [133, 1001, 2003])
+def test_local_loop_grid_with_a_partial_last_block(d):
+    """d not a multiple of the grid: the last block owns fewer entries."""
+    y, corr, m, eta, A, b = _loop_inputs(d, 3, 1, "broadcast", d)
+    plan = _loop_plan(d, 3, A)
+    assert plan.grid * plan.rows > d and plan.grid > 1
+    for kw in ({}, dict(m=m, beta=0.9)):
+        _assert_loop_close(
+            mk.scaffold_local_loop_cuda(y, corr, eta, A, b, **kw),
+            ref.scaffold_local_loop_ref(y, corr, eta, A, b, **kw))
+
+
+def test_local_loop_refuses_a_width_no_plan_fits():
+    """The first width whose slab chunk cannot fit a block's shared
+    memory raises before anything launches; nothing falls back."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    d = 1000
+    while True:
+        try:
+            mk.local_loop_plan(d, 1, 0, sms)
+        except ValueError:
+            break
+        d += 1000
+    lo = d - 1000
+    while d - lo > 1:  # the first refused width in (lo, d]
+        mid = (lo + d) // 2
+        try:
+            mk.local_loop_plan(mid, 1, 0, sms)
+            lo = mid
+        except ValueError:
+            d = mid
+    A = torch.empty((1, 1, d, d), dtype=torch.bfloat16, device="cuda")
+    b = torch.zeros((1, 1, d), device="cuda")
+    y = torch.zeros(d, device="cuda")
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        mk.scaffold_local_loop_cuda(y, None, [0.1], A, b)
+    assert ops.LAUNCHES == before
+    del A
+    torch.cuda.empty_cache()
+
+
+def test_local_loop_refuses_a_grid_that_cannot_be_co_resident(monkeypatch):
+    """A plan for a card of 10,000 SMs asks for 10,000 co-resident blocks:
+    the cooperative launch is refused, the wrapper raises and counts no
+    launch."""
+    monkeypatch.setattr(mk, "_sm_count", lambda device: 10_000)
+    y, corr, _, eta, A, b = _loop_inputs(10_000, 1, 1, "broadcast", 9)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        mk.scaffold_local_loop_cuda(y, corr, eta, A, b)
+    assert ops.LAUNCHES == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

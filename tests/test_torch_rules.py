@@ -28,7 +28,7 @@ from repro_torch.configs.base import ModelConfig as TModelConfig
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "local_loop_probe.py"]
 
 no_cuda = pytest.mark.skipif(torch.cuda.is_available(),
                              reason="checks the behaviour without CUDA")
