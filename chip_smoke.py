@@ -43,9 +43,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
   15. quadratics, sgd_sched (cosine) with server adam through B3; local
      adam and fedprox fall back to the per-step path by the reference's
      reasons
+  16. the paper's Table 5 (EMNIST-like, the 784-256-62 MLP, N 50, S 10,
+     K 25, 150 rounds, similarity 0 and 10): SGD, FedAvg and SCAFFOLD,
+     SCAFFOLD's local steps through B1; best test accuracy, seconds a
+     round, B1's launches, B1 timed at the MLP tree, a profiled round
+  17. compression and privacy on the same MLP, SCAFFOLD, 3 rounds each:
+     every uplink codec, int8 both ways, server and distributed Gaussian
+     noise over int8, and scaffold_m with local heavy-ball through B2;
+     exact bytes, residual rows written and read back, clipped norms,
+     the accountant, B2 held against its plain version and timed at the
+     MLP tree, one int8 + server-noise round on the card against the
+     CPU, and one heavy-ball round through B2 against the plain update
 
 Each main path runs with every launch count set to 0 just before it and
-read just after.
+read just after. B1's and B2's ``launches`` in the kernels line sum every
+path that runs them (``launches_by_path``).
 
 It prints the ``kernels`` JSON line, the card's name and power limit, and
 last the ``{"ok": true, "device": ...}`` line. It imports nothing of JAX
@@ -1007,7 +1019,7 @@ def phase_lm_full(result):
             or sum(counts.values()) != want):
         raise AssertionError(f"lm: launches {counts}, want B1 {want} and "
                              f"nothing else")
-    result["b1_launches"] = counts["scaffold_update"]
+    result.setdefault("b1_paths", {})["lm"] = counts["scaffold_update"]
 
     # B1 at this tree size: kernel vs plain vs bound
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1116,6 +1128,7 @@ def phase_gemma_full(result):
     if counts != want:
         raise AssertionError(f"gemma: launches {counts} != {want}")
     result["b5_launches"] = counts["swa_attention"]
+    result.setdefault("b1_paths", {})["gemma3-1b"] = counts["scaffold_update"]
     _profile_round(tr, "gemma", kernels=("swa_fwd_wgmma",
                                          "scaffold_update"))
     tr.close()
@@ -1183,7 +1196,7 @@ def phase_lm_momentum(result):
             or sum(counts.values()) != want):
         raise AssertionError(f"lm momentum: launches {counts}, want B2 "
                              f"{want} and nothing else")
-    result["b2_launches"] = want
+    result.setdefault("b2_paths", {})["lm momentum"] = want
     tr.close()
     del tr
     torch.cuda.empty_cache()
@@ -1391,6 +1404,8 @@ def phase_quadratics(ds, result):
     if not err <= 1e-4:
         raise AssertionError(f"quad final x rel err {err}")
     result["b3_launches"] = counts["megakernel"][0]
+    result.setdefault("b1_paths", {})["quadratics per-step"] = counts[
+        "per_step_fused"][1]
     result["b3"] = _time_local_loop(ds)
 
 
@@ -1414,6 +1429,8 @@ def phase_quad_heavy_ball(ds, result):
     if not err <= 1e-4:
         raise AssertionError(f"quad heavy-ball final x rel err {err}")
     result["b4_launches"] = counts["heavy-ball megakernel"][0]
+    result.setdefault("b2_paths", {})["quadratics per-step"] = counts[
+        "heavy-ball per_step_fused"][1]
     result["b4"] = _time_local_loop(ds, beta=spec.local_momentum)
 
 
@@ -1463,6 +1480,435 @@ def phase_quad_sched_adam(ds):
             raise AssertionError(f"quad {name}: {m}, {counts}")
 
 
+# the paper's Table 5 at benchmarks/table5_nn.py's full settings: the
+# 784-256-62 MLP, N 50 of 20,000 samples, S 10, K 25, eta_l 0.3, batch
+# 0.2 of a shard, 150 rounds, test accuracy every 10 rounds
+EMNIST = dict(num_clients=50, samples=20_000, seed=0)
+EMNIST_ROUNDS, EMNIST_EVAL_EVERY = 150, 10
+EMNIST_SPEC = dict(num_clients=50, num_sampled=10, local_steps=25, eta_l=0.3)
+# the MLP's leaves: w1 784x256, b1 256, w2 256x62, b2 62
+MLP_PARAMS = 784 * 256 + 256 + 256 * 62 + 62
+
+
+def _mlp_trainer(spec, data, device="cuda", init=None, fused=True):
+    """A trainer of the EMNIST MLP, its weights from a seed-0 generator
+    (or ``init``, a tree copied to ``device``); ``fused`` False runs the
+    plain update in place of B1/B2."""
+    import torch
+
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.models import simple
+
+    def init_params(gen):
+        if init is not None:
+            return {k: v.clone() for k, v in init.items()}
+        return simple.mlp_init(gen, 784, 62, device=gen.device)
+
+    return FederatedTrainer(simple.mlp_loss, init_params, spec, data, seed=0,
+                            use_fused_update=fused, device=device)
+
+
+def _time_b1_mlp(tr, eta, result):
+    """B1 at the MLP tree (216,894 fp32, one dtype group): card time a
+    call (``card_ms``, L2 flushed) of the kernel and of its plain
+    version in turns, 0 ulp against the plain version, beside its bound
+    by bytes: y, g and the correction read, y written."""
+    import torch
+
+    from repro_torch.kernels.scaffold_update import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    y = {k: v.clone() for k, v in tr.x.items()}
+    g = {k: torch.randn(v.shape, generator=gen, device="cuda")
+         for k, v in y.items()}
+    corr = {k: torch.randn(v.shape, generator=gen, device="cuda")
+            for k, v in y.items()}
+    out = ops.scaffold_update_packed(y, g, corr, eta)
+    worst = max(ulp_distance(out[k], ref.scaffold_update_ref(
+        y[k], g[k], corr[k], eta)) for k in y)
+    err = max(float((out[k] - ref.scaffold_update_ref(
+        y[k], g[k], corr[k], eta)).abs().max()) for k in y)
+    if worst != 0:
+        raise AssertionError(f"B1 at the MLP tree: {worst} ulp from plain")
+    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
+    fns = {"kernel": lambda: ops.scaffold_update_packed(y, g, corr, eta,
+                                                         out=y),
+           "plain": lambda: [ref.scaffold_update_ref(y[k], g[k], corr[k], eta)
+                             for k in y]}
+    dev = {k: [] for k in fns}
+    for turn in range(4):
+        for k in (list(fns) if turn % 2 == 0 else list(fns)[::-1]):
+            dev[k].append(card_ms(fns[k], 20, flush, 1_000_000))
+    n = sum(v.numel() for v in y.values())
+    nbytes = 4 * n * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"scaffold_update at the MLP tree ({n} fp32, {len(y)} leaves, 1 "
+        f"group): card time a call, kernel {spread(dev['kernel'])}, plain "
+        f"{spread(dev['plain'])}; bound {bound:.5f} ms (bytes, "
+        f"{nbytes / 1e6:.2f} MB: 4 tree-sized passes, L2 flushed); kernel "
+        f"vs plain 0 ulp (max |diff| {err:.1e})")
+    result["b1"].update(mlp_ms=statistics.median(dev["kernel"]),
+                        mlp_plain_ms=statistics.median(dev["plain"]),
+                        mlp_bound_ms=bound)
+
+
+def _time_b2_mlp(tr, spec, result):
+    """B2 at the MLP tree (216,894 fp32, fp32 slot, one dtype group), as
+    phase 17's local heavy-ball runs it: against the plain version
+    (bounds 1 ulp in y', 0 ulp in m', as phase 4), then card time a call
+    (``card_ms``, L2 flushed) of the kernel and of its plain version in
+    turns, beside its bound by bytes: y, g, the correction and m read,
+    y' and m' written."""
+    import torch
+
+    from repro_torch.kernels.scaffold_update import ops, ref
+
+    eta, beta = spec.eta_l, spec.local_momentum
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    y = {k: v.clone() for k, v in tr.x.items()}
+    g, corr, m = ({k: torch.randn(v.shape, generator=gen, device="cuda")
+                   for k, v in y.items()} for _ in range(3))
+    out_y, out_m = ops.scaffold_momentum_update_packed(y, g, corr, m, eta,
+                                                       beta)
+    want_y, want_m = ref.scaffold_momentum_update_tree_ref(y, g, corr, m,
+                                                           eta, beta)
+    uy = max(ulp_distance(out_y[k], want_y[k]) for k in y)
+    um = max(ulp_distance(out_m[k], want_m[k]) for k in y)
+    err = max(max(float((out_y[k] - want_y[k]).abs().max()),
+                  float((out_m[k] - want_m[k]).abs().max())) for k in y)
+    log(f"scaffold_momentum_update at the MLP tree: worst leaf {uy} ulp in "
+        f"y', {um} ulp in m' (bounds 1 and 0), max |kernel - plain| "
+        f"{err:.1e}")
+    if uy > 1 or um > 0:
+        raise AssertionError(f"B2 at the MLP tree: {uy}/{um} ulp (y', m')")
+    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
+    fns = {"kernel": lambda: ops.scaffold_momentum_update_packed(
+               y, g, corr, m, eta, beta, out=y, m_out=m),
+           "plain": lambda: ref.scaffold_momentum_update_tree_ref(
+               y, g, corr, m, eta, beta)}
+    dev = {k: [] for k in fns}
+    for turn in range(4):
+        for k in (list(fns) if turn % 2 == 0 else list(fns)[::-1]):
+            dev[k].append(card_ms(fns[k], 20, flush, 1_000_000))
+    n = sum(v.numel() for v in y.values())
+    nbytes = 6 * n * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"scaffold_momentum_update at the MLP tree ({n} fp32, fp32 slot, "
+        f"{len(y)} leaves, 1 group): card time a call, kernel "
+        f"{spread(dev['kernel'])}, plain {spread(dev['plain'])}; bound "
+        f"{bound:.5f} ms (bytes, {nbytes / 1e6:.2f} MB: 6 tree-sized "
+        f"passes, L2 flushed)")
+    result["b2"].update(mlp_ms=statistics.median(dev["kernel"]),
+                        mlp_plain_ms=statistics.median(dev["plain"]),
+                        mlp_bound_ms=bound, mlp_max_abs_err=err)
+
+
+def phase_emnist_table5(result):
+    """Phase 16: the paper's Table 5 on the card. SGD (whole batch, K 1),
+    FedAvg and SCAFFOLD through the sync host loop at similarity 0 and
+    10; every SCAFFOLD local step through B1 (FedAvg and SGD have no
+    correction, so no fused step). Fails on a non-finite loss, on B1
+    launches other than rounds x S x K for SCAFFOLD and 0 otherwise, and
+    on a best accuracy of FedAvg or SCAFFOLD at or under 0.10 (chance is
+    1/62)."""
+    import torch
+
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.data import EmnistLikeFederated
+    from repro_torch.models import simple
+
+    best_all = {}
+    for sim in (0.0, 10.0):
+        t0 = time.perf_counter()
+        data = EmnistLikeFederated(similarity_pct=sim, **EMNIST)
+        lb = data.local_batch_size(0.2)
+        tb = data.test_batch(device="cuda")
+        sizes = data.client_sizes(range(EMNIST["num_clients"]))
+        log(f"emnist sim {sim:g}%: data built in {time.perf_counter() - t0:.1f}"
+            f" s; shards {sizes.min()}-{sizes.max()}, local batch {lb}, test "
+            f"batch {tb['x'].shape[0]}")
+        for algo, K in (("sgd", 1), ("fedavg", 25), ("scaffold", 25)):
+            spec = FedRoundSpec(algorithm=algo, local_batch=lb,
+                                **{**EMNIST_SPEC, "local_steps": K})
+            tr = _mlp_trainer(spec, data)
+            reset_launches()
+            secs, accs = [], []
+            for r in range(EMNIST_ROUNDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = tr.run_round()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                if not math.isfinite(m["loss"]):
+                    raise AssertionError(f"emnist {algo} sim {sim}: round "
+                                         f"{r + 1} loss {m['loss']}")
+                if (r + 1) % EMNIST_EVAL_EVERY == 0:
+                    accs.append(simple.accuracy(simple.mlp_logits, tr.x, tb))
+            counts = launches()
+            want = {k: 0 for k in counts}
+            if algo == "scaffold":
+                want["scaffold_update"] = (EMNIST_ROUNDS * spec.num_sampled
+                                           * spec.local_steps)
+                paths = result.setdefault("b1_paths", {})
+                paths["emnist table 5"] = (paths.get("emnist table 5", 0)
+                                           + counts["scaffold_update"])
+            best = max(accs)
+            best_all[(algo, sim)] = best
+            log(f"emnist table 5, sim {sim:g}%, {algo} (K {K}): best test "
+                f"accuracy {best:.4f} (every {EMNIST_EVAL_EVERY} rounds: "
+                + ", ".join(f"{a:.3f}" for a in accs)
+                + f"); final loss {m['loss']:.4f}; s/round median of rounds "
+                f"2-{EMNIST_ROUNDS} {statistics.median(secs[1:]):.4f} "
+                f"(round 1 {secs[0]:.3f}); launches {counts}")
+            if counts != want:
+                raise AssertionError(f"emnist {algo}: launches {counts} != "
+                                     f"{want}")
+            if algo != "sgd" and not best > 0.10:
+                raise AssertionError(f"emnist {algo} sim {sim}: best "
+                                     f"accuracy {best}")
+            if algo == "scaffold" and sim == 0.0:
+                _time_b1_mlp(tr, spec.eta_l, result)
+                _profile_round(tr, "emnist", kernels=("scaffold_update",),
+                               want={"scaffold_update_kernel":
+                                     spec.num_sampled * spec.local_steps},
+                               tries=3)
+            tr.close()
+            del tr
+        del data, tb
+    for sim in (0.0, 10.0):
+        order = sorted(("sgd", "fedavg", "scaffold"),
+                       key=lambda a: -best_all[(a, sim)])
+        log(f"emnist table 5, sim {sim:g}%: best accuracy order "
+            + " > ".join(f"{a} {best_all[(a, sim)]:.4f}" for a in order)
+            + " (the paper's: scaffold > fedavg > sgd; not asserted)")
+    torch.cuda.empty_cache()
+
+
+def _closed_form_epsilon(spec, rounds: int) -> float:
+    """The accountant's bound, eps = A + 2 sqrt(A ln(1/delta)), A =
+    2 T q^2 / z^2, q = S/N, in float64."""
+    q = spec.num_sampled / spec.num_clients
+    a = 2.0 * rounds * q * q / spec.noise_multiplier ** 2
+    return a + 2.0 * math.sqrt(a * math.log(1.0 / spec.dp_delta))
+
+
+def _numpy_normals(kind, path, shape):
+    """Draws that do not depend on the device: normals from numpy, seeded
+    by the fold path (the card-vs-CPU round injects them on both)."""
+    import numpy as np
+
+    assert kind == "normal", kind
+    return np.random.default_rng(list(path)).standard_normal(
+        shape, dtype=np.float32)
+
+
+def _hidden_units_apart(xa, xb, tol):
+    """The MLP's hidden units holding an element of ``xa`` that differs
+    from ``xb`` by more than ``tol`` of its leaf's largest |value| (w1's
+    columns, b1's entries, w2's rows)."""
+    axis = {"w1": 0, "b1": None, "w2": 1}
+    units = set()
+    for k, red in axis.items():
+        far = (xa[k] - xb[k]).abs() > tol * xb[k].abs().max()
+        if red is not None:
+            far = far.any(dim=red)
+        units.update(far.nonzero()[:, 0].tolist())
+    return units
+
+
+def phase_emnist_codecs(result):
+    """Phase 17: compression and privacy on the EMNIST MLP, SCAFFOLD, N 50,
+    S 10, K 25, 3 rounds a case. Fails unless: the bytes metrics equal
+    ``round_comm_bytes`` as ints; the residual rows of round 1's cohort
+    are non-zero after it and a later round reads them back as stored;
+    every clipped client's measured norm is at most C; ``dp_epsilon`` is
+    the float64 closed form; B1 (B2 under local heavy-ball) launched
+    rounds x S x K times and nothing else; B2 at the MLP tree is within
+    1 ulp (y') and 0 ulp (m') of its plain version; one round of int8 +
+    server noise on the card is within 1e-4 of the same round on the
+    CPU; one local heavy-ball round through B2 equals the same round
+    through the plain update on the card, bitwise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.core import get_privatizer, round_comm_bytes, streams
+    from repro_torch.core.privatizer import global_norm
+    from repro_torch.data import EmnistLikeFederated
+
+    data = EmnistLikeFederated(similarity_pct=10.0, **EMNIST)
+    lb = data.local_batch_size(0.2)
+    rounds = 3
+    dp = dict(clip_norm=1.0, noise_multiplier=1.0)
+    cases = (
+        ("int8_ef up", dict(compress="int8_ef")),
+        ("topk_ef up (k 32)", dict(compress="topk_ef", compress_k=32)),
+        ("randk_ef up (k 32)", dict(compress="randk_ef", compress_k=32)),
+        ("sign_ef up", dict(compress="sign_ef")),
+        ("int8_ef both ways", dict(compress="int8_ef",
+                                   compress_downlink="int8_ef")),
+        ("server_gauss + int8_ef", dict(compress="int8_ef",
+                                        privatizer="server_gauss", **dp)),
+        ("distributed_gauss + int8_ef", dict(
+            compress="int8_ef", privatizer="distributed_gauss", **dp)),
+        ("scaffold_m, local heavy-ball", dict(
+            algorithm="scaffold_m", local_solver="momentum",
+            local_momentum=0.9)),
+    )
+    for name, changes in cases:
+        spec = FedRoundSpec(**{**dict(EMNIST_SPEC, algorithm="scaffold",
+                                      local_batch=lb), **changes})
+        tr = _mlp_trainer(spec, data)
+        priv = get_privatizer(spec.privatizer)
+        norms, read_back = [], []
+        if priv.clips:
+            clip = priv.clip
+
+            def recording_clip(sp, dy, clip=clip):
+                out, flag = clip(sp, dy)
+                norms.append(float(global_norm(out)))
+                return out, flag
+
+            priv.clip = recording_clip
+        stored = {}  # client id -> its residual row after its last round
+        if tr.residual_store is not None:
+            gather = tr.residual_store.gather
+
+            def recording_gather(ids, gather=gather):
+                rows = gather(ids)
+                for j, cid in enumerate(np.asarray(ids).tolist()):
+                    if cid in stored:
+                        read_back.append(all(torch.equal(
+                            rows[k][j], stored[cid][k]) for k in rows))
+                return rows
+
+            tr.residual_store.gather = recording_gather
+        cohorts, sample = [], tr.sampler.sample
+        tr.sampler.sample = lambda: cohorts.append(sample()) or cohorts[-1]
+        reset_launches()
+        try:
+            for r in range(rounds):
+                m = tr.run_round()
+                ids = cohorts[-1]
+                if not math.isfinite(m["loss"]):
+                    raise AssertionError(f"codecs {name}: loss {m}")
+                want_bytes = round_comm_bytes(spec, tr.x,
+                                              stateful_clients=True)
+                if (int(m["bytes_up"]), int(m["bytes_down"])) != (
+                        want_bytes["bytes_up"], want_bytes["bytes_down"]):
+                    raise AssertionError(f"codecs {name}: bytes {m} != "
+                                         f"{want_bytes}")
+                if priv.name != "none" and m["dp_epsilon"] != (
+                        _closed_form_epsilon(spec, r + 1)):
+                    raise AssertionError(f"codecs {name}: dp_epsilon "
+                                         f"{m['dp_epsilon']}")
+                if tr.residual_store is not None:
+                    rows = tr.residual_store.rows
+                    for cid in ids.tolist():
+                        stored[cid] = {k: v[cid].clone()
+                                       for k, v in rows.items()}
+                    if r == 0 and not all(
+                            any(bool(v[cid].any()) for v in rows.values())
+                            for cid in ids.tolist()):
+                        raise AssertionError(f"codecs {name}: a zero "
+                                             f"residual row after round 1")
+        finally:
+            if priv.clips:
+                priv.clip = clip
+        counts = launches()
+        kernel = ("scaffold_momentum_update" if spec.local_solver ==
+                  "momentum" else "scaffold_update")
+        want = {k: 0 for k in counts}
+        want[kernel] = rounds * spec.num_sampled * spec.local_steps
+        paths = result.setdefault("b1_paths" if kernel == "scaffold_update"
+                                  else "b2_paths", {})
+        paths["emnist codecs"] = paths.get("emnist codecs", 0) + counts[kernel]
+        extra = ""
+        if priv.clips:
+            extra += (f"; clipped norms: {len(norms)}, largest "
+                      f"{max(norms)!r} (C {spec.clip_norm}); dp_clipped_frac "
+                      f"{m['dp_clipped_frac']:.3f}; dp_epsilon "
+                      f"{m['dp_epsilon']!r} == closed form")
+        if tr.residual_store is not None:
+            extra += (f"; residual rows read back {sum(read_back)} of "
+                      f"{len(read_back)} re-sampled clients, as stored")
+        log(f"codecs {name}: loss {m['loss']:.4f}, bytes up "
+            f"{int(m['bytes_up'])} down {int(m['bytes_down'])} (== "
+            f"round_comm_bytes); launches {counts}{extra}")
+        if counts != want:
+            raise AssertionError(f"codecs {name}: launches {counts} != "
+                                 f"{want}")
+        if norms and not max(norms) <= spec.clip_norm:
+            raise AssertionError(f"codecs {name}: clipped norm {max(norms)}")
+        if tr.residual_store is not None and not (read_back
+                                                  and all(read_back)):
+            raise AssertionError(f"codecs {name}: residual rows read back "
+                                 f"{read_back}")
+        if kernel == "scaffold_momentum_update":
+            _time_b2_mlp(tr, spec, result)
+        tr.close()
+        del tr
+
+    # one round of int8 + server noise, card against CPU, same weights
+    # and the same (injected) normals
+    from repro_torch.models import simple
+
+    init = simple.mlp_init(torch.Generator().manual_seed(0), 784, 62,
+                           device="cpu")
+    spec = FedRoundSpec(**dict(EMNIST_SPEC, algorithm="scaffold",
+                               local_batch=lb, compress="int8_ef",
+                               privatizer="server_gauss", **dp))
+    xs = {}
+    with streams.injected(_numpy_normals):
+        for dev in ("cuda", "cpu"):
+            tr = _mlp_trainer(spec, data, device=dev, init=init)
+            tr.run_round()
+            xs[dev] = {k: v.cpu() for k, v in tr.x.items()}
+            tr.close()
+            del tr
+    err = max(rel_err(xs["cuda"][k], xs["cpu"][k]) for k in init)
+    log(f"codecs card vs CPU: one int8_ef + server_gauss round, injected "
+        f"normals: max leaf rel err of x {err:.2e} (bound 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"codecs card vs CPU rel err {err}")
+
+    # one local heavy-ball round (scaffold_m) through B2 against the same
+    # round through the plain update on the card: x and every client's
+    # slot row bitwise equal. Against the CPU it is printed, not held:
+    # heavy-ball at eta_l 0.3, beta 0.9 carries the two devices' ~1e-6
+    # GEMM-order differences across relu kinks, so whole hidden units
+    # part (on an H100: 9.27e-03, all of it in 2 of the 256 units, while
+    # the gradients at equal inputs agree to ~1e-6 and the plain update's
+    # round differs from the CPU's alike). tests/test_torch_kernels_gpu.py
+    # holds a K 5 heavy-ball round to the CPU at 1e-4
+    spec = FedRoundSpec(**dict(EMNIST_SPEC, algorithm="scaffold_m",
+                               local_batch=lb, local_solver="momentum",
+                               local_momentum=0.9))
+    out = {}
+    for tag, dev, fused in (("B2", "cuda", True), ("plain", "cuda", False),
+                            ("cpu", "cpu", True)):
+        tr = _mlp_trainer(spec, data, device=dev, init=init, fused=fused)
+        tr.run_round()
+        out[tag] = ({k: v.cpu() for k, v in tr.x.items()},
+                    tr.solver_store.gather(np.arange(spec.num_clients)))
+        tr.close()
+        del tr
+    (xb, mb), (xp, mp), (xc, _) = out["B2"], out["plain"], out["cpu"]
+    same = (all(torch.equal(xb[k], xp[k]) for k in xb)
+            and all(torch.equal(mb[k], mp[k]) for k in mb))
+    err = max(rel_err(xb[k], xc[k]) for k in xb)
+    units = sorted(_hidden_units_apart(xb, xc, 1e-4))
+    log(f"codecs heavy-ball round on the card: B2 vs plain update, x and "
+        f"slot rows {'bitwise equal' if same else 'DIFFER'}; vs the CPU "
+        f"(not held) max leaf rel err of x {err:.2e}, elements beyond 1e-4 "
+        f"of their leaf's max in hidden units {units} of 256")
+    if not same:
+        raise AssertionError("codecs heavy-ball round: B2 differs from the "
+                             "plain update on the card")
+    del data
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     """Run every phase; 0 when all passed."""
     import torch
@@ -1498,8 +1944,15 @@ def main() -> int:
     phase_quadratics(ds, result)
     phase_quad_heavy_ball(ds, result)
     phase_quad_sched_adam(ds)
+    del ds
+    phase_emnist_table5(result)
+    phase_emnist_codecs(result)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     # B1-B4 are bound by bytes and no one PyTorch call computes them
+    for key in ("b1", "b2"):
+        paths = result.pop(f"{key}_paths")
+        result[f"{key}_launches"] = sum(paths.values())
+        result[key]["launches_by_path"] = paths
     kernels = [
         dict(name=name, route="cuda", source=SOURCES[src], replaces=where,
              launches=result[f"{key}_launches"],

@@ -4,10 +4,11 @@
   ServerState       the server's model ``x``, control variate ``c`` and
                     server-optimizer slots.
   ClientRoundState  the S sampled clients' round state: control variates
-                    ``c_i`` and the stateful local solvers' slot rows
-                    (leaves ``(S, ...)``, host tensors — the engine moves
-                    one client's rows to the device at a time), plus
-                    optional aggregation weights.
+                    ``c_i``, the uplink codec's error-feedback residuals
+                    and the stateful local solvers' slot rows (leaves
+                    ``(S, ...)``, host tensors — the engine moves one
+                    client's rows to the device at a time), plus optional
+                    aggregation weights.
   RoundOutput       new server state, new client state and the metrics.
 
 Registered algorithms: ``scaffold`` (options I and II), ``scaffold_m``,
@@ -43,6 +44,9 @@ class ClientRoundState:
     """Round-scoped state of the S sampled clients.
 
     c_i:          control variates, leaves ``(S, ...)``.
+    uplink_residual: the stateful uplink codec's fp32 error-feedback
+                  residuals, leaves ``(S, ...)``, or None (``run_round``
+                  then starts every client from zeros).
     weights:      optional ``(S,)`` aggregation weights.
     solver_slots: the slots of a stateful local solver (``momentum``,
                   ``adam``) as one flat tree of ``(S, ...)`` rows keyed
@@ -50,12 +54,10 @@ class ClientRoundState:
                   (``core.tree.tree_flatten_slots``), else None
                   (``run_round`` then starts every client from
                   ``solver.init``).
-
-    The reference's ``uplink_residual`` rows belong to compression, not
-    ported yet.
     """
 
     c_i: Any
+    uplink_residual: Any = None
     weights: Optional[torch.Tensor] = None
     solver_slots: Any = None
 

@@ -3,13 +3,16 @@
 
 ``FederatedTrainer`` owns the ``ServerState`` (x, c and the server
 optimizer's slots) on its device, the N-client host stores of control
-variates (the paper's stateful clients) and, for a stateful local
-solver, of its slots, the cohort sampler and the data stream. Each
+variates (the paper's stateful clients), of the uplink codec's fp32
+error-feedback residuals (a stateful codec only) and, for a stateful
+local solver, of its slots, the cohort sampler and the data stream. Each
 round samples, gathers, loads, runs ``core.rounds.run_round`` and
 scatters, strictly in order — the reference's ``pipeline_depth=0``
 loop, with the same host RNG streams (``ClientSampler(seed)``, data from
 ``np.random.default_rng(seed + 1)``), so both packages draw the same
-cohorts and batches.
+cohorts and batches. The keyed compression and privacy draws come from
+``core.streams`` at the reference's fold paths (``seed + 2`` and
+``seed + 3``, keyed by the round index).
 
 The pipelined, scanned, tiered and async modes are not ported yet and
 raise ``NotImplementedError``.
@@ -28,14 +31,16 @@ from repro_torch.core.api import (
     get_algorithm,
     init_server_state,
 )
+from repro_torch.core.compression import get_compressor, round_comm_bytes
 from repro_torch.core.local_solver import (
     get_local_solver,
     megakernel_incompatibility,
     resolve_local_solver,
 )
-from repro_torch.core.rounds import check_ported, round_comm_bytes, run_round
+from repro_torch.core.rounds import check_ported, run_round
 from repro_torch.core.sampling import ClientSampler
 from repro_torch.core.store import ClientStateStore
+from repro_torch.core.streams import round_key
 from repro_torch.core.tree import tree_flatten_slots
 from repro_torch.device import resolve_device
 
@@ -104,20 +109,32 @@ class FederatedTrainer:
         self.server = init_server_state(spec, x)
         self.store = ClientStateStore(self.server.x, spec.num_clients,
                                       backend=store_backend)
+        # templates built on the meta device: the stores read only their
+        # shapes and dtypes
+        meta = {k: torch.empty_like(v, device="meta")
+                for k, v in self.server.x.items()}
+        # the uplink codec's fp32 error-feedback residuals persist per
+        # client across rounds (a stateful codec only)
+        self.compressor = get_compressor(spec.compress)
+        self.residual_store = None
+        if self.compressor.stateful:
+            self.residual_store = ClientStateStore(
+                {k: v.float() for k, v in meta.items()}, spec.num_clients,
+                backend=store_backend)
         self.local_solver = get_local_solver(resolve_local_solver(spec))
         # a stateful local solver's slots persist per client across
         # rounds: one more host row family, zeros for clients never
-        # sampled (the template is built on the meta device: only its
-        # shapes and dtypes are read)
+        # sampled
         self.solver_store = None
         if self.local_solver.stateful:
-            meta = {k: torch.empty_like(v, device="meta")
-                    for k, v in self.server.x.items()}
             self.solver_store = ClientStateStore(
                 tree_flatten_slots(self.local_solver.init(spec, meta)),
                 spec.num_clients, backend=store_backend)
         self.sampler = ClientSampler(spec.num_clients, spec.num_sampled, seed)
         self._rng = np.random.default_rng(seed + 1)
+        # the keyed streams, stateless in the round index: compression
+        # (only keyed codecs draw) and privacy (only noise draws)
+        self._comp_seed, self._priv_seed = seed + 2, seed + 3
         self._comm_bytes = {
             k: float(v) for k, v in round_comm_bytes(
                 spec, self.server.x,
@@ -173,6 +190,8 @@ class FederatedTrainer:
         round's metrics (also appended to ``history``)."""
         ids = self.sampler.sample()
         c_i = self.store.gather(ids)
+        res = (None if self.residual_store is None
+               else self.residual_store.gather(ids))
         slots = (None if self.solver_store is None
                  else self.solver_store.gather(ids))
         weights = None
@@ -182,14 +201,21 @@ class FederatedTrainer:
         batches = self.dataset.round_batches(
             ids, self.spec.local_steps, self.spec.local_batch, self._rng,
             device=self.device)
+        t = self.round_idx
         out = run_round(self._grad_fn, self.spec, self.server,
-                        ClientRoundState(c_i=c_i, weights=weights,
+                        ClientRoundState(c_i=c_i, uplink_residual=res,
+                                         weights=weights,
                                          solver_slots=slots), batches,
-                        use_fused_update=self._use_fused_update)
-        del batches, c_i, slots
+                        use_fused_update=self._use_fused_update,
+                        comp_key=round_key(self._comp_seed, t, self.device),
+                        priv_key=round_key(self._priv_seed, t, self.device),
+                        dp_round=t)
+        del batches, c_i, res, slots
         self.server = out.server
         if self.algorithm.stateful_clients:
             self.store.scatter(ids, out.clients.c_i)
+        if self.residual_store is not None:
+            self.residual_store.scatter(ids, out.clients.uplink_residual)
         if self.solver_store is not None:
             self.solver_store.scatter(ids, out.clients.solver_slots)
         self.round_idx += 1
@@ -221,5 +247,7 @@ class FederatedTrainer:
     def close(self) -> None:
         """Release the host stores."""
         self.store.close()
+        if self.residual_store is not None:
+            self.residual_store.close()
         if self.solver_store is not None:
             self.solver_store.close()

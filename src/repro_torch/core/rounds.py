@@ -11,17 +11,24 @@ differs is the aggregation, which follows the reference exactly:
   client_sequential a running weighted sum in the model's dtype (the
                     reference's scan carry), drift = ||mean dy||.
 
-Each client's ``c_i`` and solver-slot rows move to the model's device
-only while that client runs, and its new rows go straight back over its
-input rows, so the device holds one client's state at a time and the
-host one copy of the cohort's. Compression, privatization and
-non-``full`` update spaces are not ported yet: a spec that asks for them
-raises ``NotImplementedError``.
+Each client's ``c_i``, residual and solver-slot rows move to the model's
+device only while that client runs, and its new rows go straight back
+over its input rows, so the device holds one client's state at a time
+and the host one copy of the cohort's.
+
+Compression and privacy follow the reference's order. The downlink codec
+transforms the broadcast ``(x, c)``; the clients start from what they
+received and measure dy against it, while the server applies the mean
+to its exact x. Per client: clip dy (``spec.privatizer``), add the
+client's noise, then round-trip dy through the uplink codec with the
+client's error-feedback residual. Server noise lands on the mean before
+the server optimizer. The control stream dc is never compressed or
+noised. Non-``full`` update spaces are not ported yet: a spec that asks
+for one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
 
 import torch
 
@@ -33,11 +40,13 @@ from repro_torch.core.api import (
     get_server_optimizer,
     resolve_server_optimizer,
 )
+from repro_torch.core.compression import get_compressor, round_comm_bytes
 from repro_torch.core.local_solver import (
     get_local_solver,
     resolve_local_solver,
     run_local_steps,
 )
+from repro_torch.core.privatizer import get_privatizer
 from repro_torch.core.tree import (
     tree_flatten_slots,
     tree_map,
@@ -52,18 +61,12 @@ _CHUNK = 1 << 26
 
 
 def check_ported(spec) -> None:
-    """Raise ``NotImplementedError`` for spec knobs whose subsystems are
-    not ported yet (the JAX package supports them)."""
-    pending = []
-    if spec.compress != "none" or spec.compress_downlink != "none":
-        pending.append(f"compression ({spec.compress!r}/"
-                       f"{spec.compress_downlink!r})")
-    if spec.privatizer != "none":
-        pending.append(f"privatizer {spec.privatizer!r}")
+    """Raise ``NotImplementedError`` for a non-``full`` update space (not
+    ported yet; the JAX package supports it), ``KeyError`` for a name no
+    registry knows."""
     if spec.update_space != "full":
-        pending.append(f"update space {spec.update_space!r}")
-    if pending:
-        raise NotImplementedError(", ".join(pending) + ": not ported yet")
+        raise NotImplementedError(
+            f"update space {spec.update_space!r}: not ported yet")
     get_algorithm(spec.algorithm)
     get_local_solver(resolve_local_solver(spec))
     get_server_optimizer(resolve_server_optimizer(spec))
@@ -121,22 +124,6 @@ def _whole_batch_round(grad_fn, spec, server, clients, batches) -> RoundOutput:
                        clients=clients, metrics=out_metrics)
 
 
-def tree_bytes(tree) -> int:
-    """Bytes of an uncompressed tree (the raw wire size)."""
-    return sum(v.numel() * v.element_size() for v in tree.values())
-
-
-def round_comm_bytes(spec, x, *, stateful_clients: bool) -> Dict[str, int]:
-    """Exact per-round communicated bytes (uncompressed): per sampled
-    client, dy (+ dc for stateful-client algorithms) up, x (+ c) down."""
-    check_ported(spec)
-    per = tree_bytes(x)
-    per_up = per * (2 if stateful_clients else 1)
-    per_down = per * (2 if stateful_clients else 1)
-    return {"bytes_up": spec.num_sampled * per_up,
-            "bytes_down": spec.num_sampled * per_down}
-
-
 def _accumulate(acc, w: float, d) -> None:
     """``acc += w * d`` leafwise in place, computed in fp32 and rounded
     once to acc's dtype (a chunk of elements at a time)."""
@@ -147,37 +134,95 @@ def _accumulate(acc, w: float, d) -> None:
             af[sl] = af[sl].float() + w * df[sl].float()
 
 
+def _rows_to(rows, i, dev, copy=False):
+    """Row ``i`` of a family of ``(S, ...)`` rows, on ``dev`` (a copy the
+    caller owns with ``copy``)."""
+    return {k: v[i].to(dev, non_blocking=not copy, copy=copy)
+            for k, v in rows.items()}
+
+
+def _write_row(rows, i, new, s: int, place):
+    """Write a client's new rows over row ``i`` of ``rows``; when the
+    round brought none, first allocate ``(s, ...)`` rows on ``place``
+    (every client of the round then fills its own). Returns ``rows``."""
+    if rows is None:
+        rows = {k: torch.empty((s,) + tuple(v.shape), dtype=v.dtype,
+                               device=place) for k, v in new.items()}
+    for k, v in new.items():
+        rows[k][i].copy_(v)
+    return rows
+
+
 def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
-              batches, use_fused_update: bool = False) -> RoundOutput:
+              batches, use_fused_update: bool = False, comp_key=None,
+              priv_key=None, dp_round=None) -> RoundOutput:
     """One communication round over the S sampled clients.
 
-    server:  ``ServerState`` on the model's device.
-    clients: ``ClientRoundState`` — c_i with leaves (S, ...) (host or
-             device), the stateful local solver's slot rows (flat, leaves
-             (S, ...), or None for fresh slots), optional (S,)
-             aggregation weights.
-    batches: dict with leaves (S, K, b, ...) on the model's device.
+    server:   ``ServerState`` on the model's device.
+    clients:  ``ClientRoundState`` — c_i with leaves (S, ...) (host or
+              device), the uplink codec's residual rows (None starts
+              from zeros), the stateful local solver's slot rows (flat,
+              leaves (S, ...), or None for fresh slots), optional (S,)
+              aggregation weights.
+    batches:  dict with leaves (S, K, b, ...) on the model's device.
+    comp_key: this round's compression key (``core.streams.round_key(
+              seed + 2, t, device)``), needed when a codec is keyed
+              (``randk_ef``): client ``i`` draws ``fold_in(0).fold_in(i)``
+              and the downlink ``fold_in(1)``.
+    priv_key: this round's privacy key (``round_key(seed + 3, t, ...)``),
+              needed by a noise-adding privatizer: client ``i`` draws
+              ``fold_in(0).fold_in(i)``, the server ``fold_in(1)``.
+    dp_round: the absolute round index, needed when privatizing (the
+              metric ``dp_epsilon`` is ``epsilon(dp_round + 1)``).
 
-    The client rows are the round's to update: each client's new c_i and
-    slot rows are written over its input rows (the host then holds one
-    copy of the cohort's state, not two). Returns the new
-    ``ServerState``, the new client state (those rows; slot rows only for
-    a stateful solver, fresh ones in c_i's placement when none came in)
-    and the metrics: ``loss``, ``drift``, ``update_norm`` (0-d tensors)
-    and ``bytes_up``/``bytes_down`` (ints).
+    The client rows are the round's to update: each client's new c_i,
+    residual and slot rows are written over its input rows (the host
+    then holds one copy of the cohort's state, not two). Returns the new
+    ``ServerState``, the new client state (those rows; residual and slot
+    rows allocated in c_i's placement when none came in) and the
+    metrics: ``loss``, ``drift``, ``update_norm`` (0-d tensors),
+    ``bytes_up``/``bytes_down`` (ints) and, when privatizing,
+    ``dp_epsilon`` (the float64 accountant after ``dp_round + 1``
+    rounds) and ``dp_clipped_frac`` (a 0-d tensor).
     """
     check_ported(spec)
     algo = get_algorithm(spec.algorithm)
     if algo.whole_batch:
         return _whole_batch_round(grad_fn, spec, server, clients, batches)
 
+    up = get_compressor(spec.compress)
+    down = get_compressor(spec.compress_downlink)
+    priv = get_privatizer(spec.privatizer)
+    privatizing = priv.name != "none"
+    if ((up.needs_key or down.needs_key) and comp_key is None
+            or privatizing and (priv_key is None or dp_round is None)):
+        raise ValueError(
+            f"codecs {up.name!r}/{down.name!r} and privatizer {priv.name!r}:"
+            f" pass comp_key (a keyed codec), priv_key and dp_round (a "
+            f"privatizer) to run_round")
+    compressing = up.name != "none"
+    clipping = privatizing and priv.clips
+    k_up = comp_key.fold_in(0) if comp_key is not None else None
+    k_priv = priv_key.fold_in(0) if priv_key is not None else None
+
     x, c = server.x, server.c
     dev = next(iter(x.values())).device
+    # what the clients receive: the (optionally compressed) broadcast;
+    # dy is measured against it, the server applies to the exact x
+    if down.name != "none":
+        x_cl, c_cl = down.apply_stateless(
+            spec, (x, c),
+            key=comp_key.fold_in(1) if comp_key is not None else None)
+    else:
+        x_cl, c_cl = x, c
+
     s = spec.num_sampled
     c_i_all, weights = clients.c_i, clients.weights
+    place = next(iter(c_i_all.values())).device
     stateful_solver = get_local_solver(resolve_local_solver(spec)).stateful
     slots_all = clients.solver_slots if stateful_solver else None
     fresh_slots = slots_all is None  # every client starts from solver.init
+    res_all = clients.uplink_residual
     if weights is not None:
         wnorm = weights.float()
         wnorm = (wnorm / torch.clamp(wnorm.sum(), min=1e-12)).tolist()
@@ -197,31 +242,38 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
         dc_acc = {k: torch.zeros_like(v) for k, v in c.items()}
         w_seq = (wnorm if weights is not None
                  else torch.full((s,), 1.0 / s, dtype=torch.float32).tolist())
-    losses = []
+    losses, clip_flags = [], []
     for i in range(s):
-        c_i = {k: v[i].to(dev, non_blocking=True) for k, v in c_i_all.items()}
-        slots_i = (None if fresh_slots else tree_nest_slots(
-            {k: v[i].to(dev, copy=True) for k, v in slots_all.items()}))
+        c_i = _rows_to(c_i_all, i, dev)
+        slots_i = (None if fresh_slots else
+                   tree_nest_slots(_rows_to(slots_all, i, dev, copy=True)))
         batch_i = {k: v[i] for k, v in batches.items()}
         dy, dc, c_i_new, slots_new, loss = client_update(
-            grad_fn, spec, x, c, c_i, batch_i, solver_slots=slots_i,
+            grad_fn, spec, x_cl, c_cl, c_i, batch_i, solver_slots=slots_i,
             use_fused_update=use_fused_update)
         del c_i, slots_i
         if algo.stateful_clients:
-            for k, v in c_i_new.items():
-                c_i_all[k][i].copy_(v)
+            _write_row(c_i_all, i, c_i_new, s, place)
         del c_i_new
         if stateful_solver:
-            flat = tree_flatten_slots(slots_new)
-            if slots_all is None:
-                place = next(iter(c_i_all.values())).device
-                slots_all = {k: torch.empty((s,) + tuple(v.shape),
-                                            dtype=v.dtype, device=place)
-                             for k, v in flat.items()}
-            for k, v in flat.items():
-                slots_all[k][i].copy_(v)
-            del flat
+            slots_all = _write_row(slots_all, i, tree_flatten_slots(slots_new),
+                                   s, place)
         del slots_new
+        if clipping:
+            # clip -> (client noise) -> compress: the codec sees a
+            # norm-bounded, already-noised delta
+            dy, flag = priv.clip(spec, dy)
+            clip_flags.append(flag)
+            if priv.noise_at == "client":
+                dy = priv.client_noise(spec, dy, k_priv.fold_in(i))
+        if compressing:
+            res_i = None if res_all is None else _rows_to(res_all, i, dev)
+            dy, res_new = up.round_trip(
+                spec, dy, res_i,
+                key=k_up.fold_in(i) if up.needs_key else None)
+            if up.stateful:
+                res_all = _write_row(res_all, i, res_new, s, place)
+            del res_i, res_new
         if parallel:
             norms.append(tree_norm(dy))
         _accumulate(dy_acc, w_seq[i], dy)
@@ -240,6 +292,11 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
         drift = tree_norm(dy_mean)
     loss = torch.stack(losses).mean()
 
+    # trusted-aggregator noise lands on the mean, after the codec and
+    # before the server optimizer
+    if privatizing and priv.noise_at == "server":
+        dy_mean = priv.server_noise(spec, dy_mean, priv_key.fold_in(1))
+
     opt = get_server_optimizer(resolve_server_optimizer(spec))
     x_new, opt_state_new, applied = opt.apply(spec, server.opt_state, x,
                                               dy_mean)
@@ -250,9 +307,14 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
         "update_norm": tree_norm(applied),
         **round_comm_bytes(spec, x, stateful_clients=algo.stateful_clients),
     }
+    if privatizing:
+        metrics["dp_epsilon"] = priv.epsilon(spec, dp_round + 1)
+        if clip_flags:
+            metrics["dp_clipped_frac"] = torch.stack(
+                [f.cpu() for f in clip_flags]).mean()
     return RoundOutput(
         server=ServerState(x=x_new, c=c_new, opt_state=opt_state_new),
-        clients=ClientRoundState(c_i=c_i_all, weights=weights,
-                                 solver_slots=slots_all),
+        clients=ClientRoundState(c_i=c_i_all, uplink_residual=res_all,
+                                 weights=weights, solver_slots=slots_all),
         metrics=metrics,
     )

@@ -13,6 +13,18 @@ import torch
 Tree = Dict[str, torch.Tensor]
 
 
+def _path_key(path: str):
+    return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                 for p in path.split("/"))
+
+
+def leaf_keys(tree: Tree):
+    """The tree's keys in the JAX pytree's flatten order: dict keys
+    sorted, list indices in numeric order ("leaf j" of a per-leaf key
+    fold is the same leaf in both packages)."""
+    return sorted(tree, key=_path_key)
+
+
 def tree_map(fn, *trees: Tree) -> Tree:
     """``{k: fn(a[k], b[k], ...)}`` over the keys of the first tree."""
     first = trees[0]

@@ -1,3 +1,8 @@
+from repro_torch.data.emnist_like import (  # noqa: F401
+    EmnistLikeFederated,
+    generate_dataset,
+    similarity_split,
+)
 from repro_torch.data.quadratics import (  # noqa: F401
     QuadraticDataset,
     make_paper_fig3,

@@ -411,3 +411,129 @@ def test_swa_attention_refuses_what_tma_cannot_read():
     with pytest.raises(ValueError, match="16-byte"):
         swa_ops.swa_attention_cuda(ok, padded[..., :64], ok, 16)
     assert swa_ops.LAUNCHES["swa_attention"] == before
+
+
+# ------------------------------------------------- the EMNIST slice
+
+
+def _mlp_tree(gen, dev="cuda"):
+    """The EMNIST MLP's leaves (784-256-62), fp32."""
+    shapes = {"b1": (256,), "b2": (62,), "w1": (784, 256), "w2": (256, 62)}
+    return {k: torch.randn(s, generator=gen, device=dev)
+            for k, s in shapes.items()}
+
+
+def test_scaffold_update_at_the_mlp_tree_is_exact():
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    y, g, c = (_mlp_tree(gen) for _ in range(3))
+    before = ops.LAUNCHES["scaffold_update"]
+    out = ops.scaffold_update_packed(y, g, c, 0.3)
+    assert ops.LAUNCHES["scaffold_update"] == before + 1
+    for k in y:
+        assert ulp_distance(out[k], ref.scaffold_update_ref(
+            y[k], g[k], c[k], 0.3)) == 0, k
+
+
+def test_scaffold_momentum_update_at_the_mlp_tree_is_exact():
+    """B2 on the MLP tree with an fp32 slot, as scaffold_m's local
+    heavy-ball runs it: 1 ulp in y', 0 ulp in m' (the bounds of the
+    other B2 card tests)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    y, g, c, m = (_mlp_tree(gen) for _ in range(4))
+    before = ops.LAUNCHES["scaffold_momentum_update"]
+    out_y, out_m = ops.scaffold_momentum_update_packed(y, g, c, m, 0.3, 0.9)
+    assert ops.LAUNCHES["scaffold_momentum_update"] == before + 1
+    want_y, want_m = ref.scaffold_momentum_update_tree_ref(y, g, c, m, 0.3,
+                                                           0.9)
+    for k in y:
+        assert ulp_distance(out_y[k], want_y[k]) <= 1, k
+        assert ulp_distance(out_m[k], want_m[k]) == 0, k
+
+
+def _emnist_trainer(dev, fused=True, **changes):
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.data import EmnistLikeFederated
+    from repro_torch.models import simple
+
+    data = EmnistLikeFederated(10, 2000, 10.0, seed=0, test_samples=100)
+    spec = FedRoundSpec(**{**dict(
+        algorithm="scaffold", num_clients=10, num_sampled=4, local_steps=5,
+        local_batch=data.local_batch_size(0.2), eta_l=0.3), **changes})
+    init = simple.mlp_init(torch.Generator().manual_seed(0), 784, 62,
+                           device="cpu")
+    return FederatedTrainer(simple.mlp_loss,
+                            lambda gen: {k: v.clone() for k, v in
+                                         init.items()},
+                            spec, data, seed=0, use_fused_update=fused,
+                            device=dev)
+
+
+@pytest.mark.parametrize("algo,want", [("scaffold", 2 * 4 * 5),
+                                       ("fedavg", 0)])
+def test_emnist_round_launches_b1_on_every_corrected_step(algo, want):
+    tr = _emnist_trainer("cuda", algorithm=algo)
+    ops.reset_launches()
+    for _ in range(2):
+        m = tr.run_round()
+    assert math.isfinite(m["loss"])
+    assert ops.LAUNCHES["scaffold_update"] == want
+    assert sum(ops.LAUNCHES.values()) == want
+
+
+def test_emnist_heavy_ball_round_launches_b2_and_matches_the_cpu():
+    """scaffold_m with local heavy-ball: B2 on every local step (S x K a
+    round, nothing else launched), x and the slot rows bitwise equal to
+    the card's plain update, and x within 1e-4 of the CPU's."""
+    import numpy as np
+
+    kw = dict(algorithm="scaffold_m", local_solver="momentum",
+              local_momentum=0.9)
+    out = {}
+    for tag, dev, fused in (("B2", "cuda", True), ("plain", "cuda", False),
+                            ("cpu", "cpu", True)):
+        tr = _emnist_trainer(dev, fused=fused, **kw)
+        ops.reset_launches()
+        m = tr.run_round()
+        assert math.isfinite(m["loss"])
+        want = 4 * 5 if tag == "B2" else 0
+        assert ops.LAUNCHES["scaffold_momentum_update"] == want
+        assert sum(ops.LAUNCHES.values()) == want
+        out[tag] = ({k: v.cpu() for k, v in tr.x.items()},
+                    tr.solver_store.gather(np.arange(10)))
+    (xb, mb), (xp, mp), (xc, _) = out["B2"], out["plain"], out["cpu"]
+    for k in xb:
+        assert torch.equal(xb[k], xp[k]), k
+    for k in mb:
+        assert torch.equal(mb[k], mp[k]), k
+    for k, v in xc.items():
+        assert (xb[k] - v).abs().max() <= 1e-4 * v.abs().max(), k
+
+
+def test_codec_and_privacy_round_on_the_card_matches_the_cpu():
+    """int8 both ways + server noise (normals from numpy at the fold
+    paths, on both devices): x within 1e-4 of the CPU's after one round,
+    the residual rows alike, the bytes and dp_epsilon equal."""
+    import numpy as np
+
+    from repro_torch.core import streams
+
+    def normals(kind, path, shape):
+        return np.random.default_rng(list(path)).standard_normal(
+            shape, dtype=np.float32)
+
+    kw = dict(compress="int8_ef", compress_downlink="int8_ef",
+              privatizer="server_gauss", clip_norm=1.0, noise_multiplier=1.0)
+    out = {}
+    with streams.injected(normals):
+        for dev in ("cuda", "cpu"):
+            tr = _emnist_trainer(dev, **kw)
+            m = tr.run_round()
+            rows = tr.residual_store.gather(np.arange(10))
+            out[dev] = (m, {k: v.cpu() for k, v in tr.x.items()}, rows)
+    (mc, xc, rc), (mh, xh, rh) = out["cuda"], out["cpu"]
+    for k in ("bytes_up", "bytes_down", "dp_epsilon"):
+        assert mc[k] == mh[k], k
+    for k, v in xh.items():
+        assert (xc[k] - v).abs().max() <= 1e-4 * v.abs().max(), k
+    assert any(v.any() for v in rc.values())

@@ -14,6 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,7 +29,8 @@ from repro_torch.configs.base import ModelConfig as TModelConfig
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "local_loop_probe.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "local_loop_probe.py",
+    ROOT / "tools" / "heavy_ball_kink_probe.py"]
 
 no_cuda = pytest.mark.skipif(torch.cuda.is_available(),
                              reason="checks the behaviour without CUDA")
@@ -79,10 +81,14 @@ def test_default_device_trainer_raises_without_cuda():
 @no_cuda
 def test_default_device_entry_points_raise_without_cuda():
     from repro_torch.convert import params_from_jax
-    from repro_torch.data import SyntheticLMFederated, make_paper_fig3
+    from repro_torch.data import (EmnistLikeFederated, SyntheticLMFederated,
+                                  make_paper_fig3)
     from repro_torch.kernels.scaffold_update import megakernel as mk
     from repro_torch.kernels.scaffold_update import ops
     from repro_torch.models import model as M
+    from repro_torch.models import simple
+
+    emnist = EmnistLikeFederated(2, 40, 10.0, test_samples=8)
 
     x = torch.ones(8)
     calls = [
@@ -97,6 +103,11 @@ def test_default_device_entry_points_raise_without_cuda():
         lambda: params_from_jax({"w": x.numpy()}),
         lambda: make_paper_fig3().round_batches([0], 1, 1, None),
         lambda: SyntheticLMFederated(2, 16, 4).eval_batch(1, None),
+        lambda: emnist.round_batches([0], 1, 2, np.random.default_rng(0)),
+        lambda: emnist.test_batch(),
+        lambda: simple.mlp_init(None, 784, 62),
+        lambda: simple.mlp_init(torch.Generator().manual_seed(0), 784, 62),
+        lambda: simple.logreg_init(None, 784, 62),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

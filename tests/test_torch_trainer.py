@@ -193,10 +193,9 @@ def test_lm_megakernel_falls_back_loudly(lm_weights):
     dict(trainer={"scan_rounds": 4}),
     dict(trainer={"store": "tiered"}),
     dict(trainer={"async_buffer": 2}),
-    dict(spec={"compress": "int8_ef"}),
+    dict(spec={"update_space": "head_only", "update_targets": "x"}),
     dict(spec={"update_space": "lora", "lora_rank": 2}),
-    dict(spec={"privatizer": "server_gauss", "clip_norm": 1.0,
-               "noise_multiplier": 1.0}),
+    dict(trainer={"store_backend": "memmap"}),
 ])
 def test_not_ported_modes_raise(change):
     tds = make_paper_fig3()
@@ -213,7 +212,9 @@ def test_not_ported_modes_raise(change):
     {"algorithm": "scaffold_m"},
     {"server_optimizer": "adam"},
     {"local_solver": "momentum"},
-], ids=["fedprox", "scaffold_m", "server_adam", "local_momentum"])
+    {"compress": "int8_ef"},
+], ids=["fedprox", "scaffold_m", "server_adam", "local_momentum",
+        "int8_uplink"])
 def test_ported_modes_match_reference(change):
     """Modes that once raised "not ported yet" construct on the CPU and
     run one round equal to the reference's (x to 1e-5 of the start's
