@@ -12,8 +12,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      into build/kernels/, the nvcc processes started together; B5's
      registers, spills and shared memory a block (no spills allowed in
      its tensor-core instantiations)
-  3. the fused corrected-step kernel (B1) against its plain version
-  4. the fused heavy-ball kernel (B2) against its plain version
+  3. the fused corrected-step kernel (B1) against its plain version: a
+     large leaf, a mixed-dtype tree, and the tree cases of ``B12_CASES``
+     (the MLP tree, the 1024 leaf, a 256-leaf group, leaves of 0, 1 and
+     62 elements, a misaligned view inside a group), each launched twice
+     and bitwise equal, one launch a dtype group
+  4. the fused heavy-ball kernel (B2) against its plain version, the same
+     cases
   5. the K-step local-loop kernel (B3) against its plain version, A fresh
      and broadcast, resident and streaming (d 3000), each case launched
      twice and bitwise equal; fails if a launch ran on one block
@@ -46,13 +51,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
   16. the paper's Table 5 (EMNIST-like, the 784-256-62 MLP, N 50, S 10,
      K 25, 150 rounds, similarity 0 and 10): SGD, FedAvg and SCAFFOLD,
      SCAFFOLD's local steps through B1; best test accuracy, seconds a
-     round, B1's launches, B1 timed at the MLP tree, a profiled round
+     round, B1's launches, a profiled round; B1 timed at the MLP tree
+     (card time beside its empty launch, the plain version and
+     ``torch._foreach_add_``; the wrapper's host time a call) and at the
+     1024 leaf
   17. compression and privacy on the same MLP, SCAFFOLD, 3 rounds each:
      every uplink codec, int8 both ways, server and distributed Gaussian
      noise over int8, and scaffold_m with local heavy-ball through B2;
      exact bytes, residual rows written and read back, clipped norms,
-     the accountant, B2 held against its plain version and timed at the
-     MLP tree, one int8 + server-noise round on the card against the
+     the accountant, B2 held against its plain version and timed as B1
+     in phase 16, one int8 + server-noise round on the card against the
      CPU, and one heavy-ball round through B2 against the plain update
 
 Each main path runs with every launch count set to 0 just before it and
@@ -132,6 +140,24 @@ B5_CASES = ((1, 512, 2, 1, 64, 128), (2, 256, 4, 4, 32, 64),
             (1, 300, 4, 1, 256, 512), (1, 200, 2, 1, 32, 50),
             (2, 512, 4, 1, 256, 128), (2, 1000, 8, 2, 64, 300))
 B5_LAYER = B5_CASES[4]  # gemma3-1b's "W" layer at batch 1, the timed shape
+# B1's and B2's tree cases, name -> (leaf sizes, dtype of y and g, dtype
+# of corr, misaligned leaves): the trees the main path launches them on
+# (the EMNIST MLP's, the quadratics' one leaf), a full leaf table (corr
+# fp32 as the trainer's, and bf16), a group with empty and tiny leaves,
+# and a view 4 B past an aligned base inside a group (its chunks take the
+# scalar path). tests/test_torch_kernels_gpu.py runs the same cases.
+B12_CASES = {
+    "mlp tree": ((784 * 256, 256, 256 * 62, 62), "float32", "float32", ()),
+    "1024 leaf": ((1024,), "float32", "float32", ()),
+    "256 leaves": (tuple(1 + (i * 131) % 4099 for i in range(256)),
+                   "bfloat16", "float32", ()),
+    "256 leaves, bf16 corr": (tuple(1 + (i * 131) % 4099
+                                    for i in range(256)),
+                              "bfloat16", "bfloat16", ()),
+    "0, 1, 62 elements": ((0, 1, 62, 4101), "float32", "float32", ()),
+    "misaligned view in a group": ((5000, 3001, 62), "float32", "float32",
+                                   (1,)),
+}
 
 
 def reset_launches() -> None:
@@ -373,6 +399,59 @@ def sass_tensor_core_counts(lib: Path) -> dict:
     return counts
 
 
+def _check_b12_cases(momentum: bool) -> None:
+    """Every case of ``B12_CASES`` through B1 (B2 with ``momentum``),
+    launched twice into fresh outputs: the two runs bitwise equal, one
+    launch each, y' within 0 ulp of the plain version in fp32 and 1 in
+    bf16, m' within 0 ulp."""
+    import torch
+
+    from repro_torch.kernels.scaffold_update import ops, ref
+
+    name = "scaffold_momentum_update" if momentum else "scaffold_update"
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for case, (sizes, dtype, corr_dtype, views) in B12_CASES.items():
+        dt, ct = getattr(torch, dtype), getattr(torch, corr_dtype)
+        trees = [{}, {}, {}, {}]
+        for i, n in enumerate(sizes):
+            for t, tdt in zip(trees, (dt, dt, ct, torch.float32)):
+                base = torch.randn(n + 1, generator=gen, device="cuda").to(tdt)
+                t[f"l{i}"] = base[1:] if i in views else base[:n].clone()
+        y, g, c, m = trees
+        runs, n_launch = [], []
+        for _ in range(2):
+            before = ops.LAUNCHES[name]
+            if momentum:
+                runs.append(ops.scaffold_momentum_update_packed(
+                    y, g, c, m, 0.3, 0.9))
+            else:
+                runs.append((ops.scaffold_update_packed(y, g, c, 0.3), {}))
+            n_launch.append(ops.LAUNCHES[name] - before)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a[k], b[k]) for a, b in zip(*runs)
+                   for k in a)
+        if momentum:
+            want_y, want_m = ref.scaffold_momentum_update_tree_ref(
+                y, g, c, m, 0.3, 0.9)
+        else:
+            want_y = {k: ref.scaffold_update_ref(y[k], g[k], c[k], 0.3)
+                      for k in y}
+            want_m = {}
+        uy = max((ulp_distance(runs[0][0][k], want_y[k]) for k in y
+                  if y[k].numel()), default=0)
+        um = max((ulp_distance(runs[0][1][k], want_m[k]) for k in want_m
+                  if y[k].numel()), default=0)
+        (plan,) = ops.plans(y, g, c, m if momentum else None)
+        log(f"{name} {case} ({len(sizes)} leaves, {sum(sizes)} {dtype}): "
+            f"grid {plan.grid} over {plan.first[-1]} chunks of {ops.CHUNK}, "
+            f"table of {plan.capacity}; launches {n_launch}; two runs "
+            f"{'bitwise equal' if same else 'DIFFER'}; worst leaf {uy} ulp "
+            f"in y'" + (f", {um} in m'" if momentum else ""))
+        if (not same or n_launch != [1, 1] or uy > (dt == torch.bfloat16)
+                or um > 0 or not 1 <= plan.grid <= plan.first[-1]):
+            raise AssertionError(f"{name} {case} failed")
+
+
 def phase_b1_plain():
     """Phase 3: the fused update kernel against its plain version."""
     import torch
@@ -418,6 +497,7 @@ def phase_b1_plain():
         f" {n_launch} launches, worst leaf {worst} ulp (bound 1)")
     if n_launch != groups or worst > 1:
         raise AssertionError("scaffold_update_packed mixed tree failed")
+    _check_b12_cases(momentum=False)
 
 
 def phase_b2_plain():
@@ -469,6 +549,7 @@ def phase_b2_plain():
     if n_launch != groups or uy > 1 or um > 0:
         raise AssertionError("scaffold_momentum_update_packed mixed tree "
                              "failed")
+    _check_b12_cases(momentum=True)
 
 
 def _b3_inputs(gen, d, K, bsz, ty, tab):
@@ -1508,11 +1589,40 @@ def _mlp_trainer(spec, data, device="cuda", init=None, fused=True):
                             use_fused_update=fused, device=device)
 
 
+def _time_small_trees(fns, host_call, quad_call):
+    """Card time a call (``card_ms``, L2 flushed) of each of ``fns`` in
+    turns, the wrapper's host time a call of ``host_call`` (median of 30
+    calls by the host clock, the card idle before each), and the card
+    time of ``quad_call``: medians, and the kernel's turns."""
+    import torch
+
+    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
+    dev = {k: [] for k in fns}
+    for turn in range(4):
+        for k in (list(fns) if turn % 2 == 0 else list(fns)[::-1]):
+            dev[k].append(card_ms(fns[k], 20, flush, 1_000_000))
+    host = []
+    for _ in range(30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host_call()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    quad = [card_ms(quad_call, 20, flush, 1_000_000) for _ in range(4)]
+    out = {k: statistics.median(v) for k, v in dev.items()}
+    out.update(host_us=1e6 * statistics.median(host),
+               quad=statistics.median(quad), turns=dev["kernel"])
+    return out
+
+
 def _time_b1_mlp(tr, eta, result):
     """B1 at the MLP tree (216,894 fp32, one dtype group): card time a
-    call (``card_ms``, L2 flushed) of the kernel and of its plain
-    version in turns, 0 ulp against the plain version, beside its bound
-    by bytes: y, g and the correction read, y written."""
+    call (``card_ms``, L2 flushed) of the kernel, its plain version, its
+    empty launch (the same leaf table and grid, no work) and
+    ``torch._foreach_add_(ys, gs)`` in turns, 0 ulp against the plain
+    version, beside its bound by bytes: y, g and the correction read, y
+    written; the wrapper's host time a call; and the card time at the
+    quadratics' 1024-element leaf."""
     import torch
 
     from repro_torch.kernels.scaffold_update import ops, ref
@@ -1530,35 +1640,45 @@ def _time_b1_mlp(tr, eta, result):
         y[k], g[k], corr[k], eta)).abs().max()) for k in y)
     if worst != 0:
         raise AssertionError(f"B1 at the MLP tree: {worst} ulp from plain")
-    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
-    fns = {"kernel": lambda: ops.scaffold_update_packed(y, g, corr, eta,
-                                                         out=y),
-           "plain": lambda: [ref.scaffold_update_ref(y[k], g[k], corr[k], eta)
-                             for k in y]}
-    dev = {k: [] for k in fns}
-    for turn in range(4):
-        for k in (list(fns) if turn % 2 == 0 else list(fns)[::-1]):
-            dev[k].append(card_ms(fns[k], 20, flush, 1_000_000))
+    (plan,) = ops.plans(y, g, corr)
+    ys, gs = list(y.values()), list(g.values())
+    q = [torch.randn(1024, generator=gen, device="cuda") for _ in range(3)]
+
+    def kernel():
+        ops.scaffold_update_packed(y, g, corr, eta, out=y)
+
+    t = _time_small_trees(
+        {"kernel": kernel,
+         "plain": lambda: [ref.scaffold_update_ref(y[k], g[k], corr[k], eta)
+                           for k in y],
+         "floor": lambda: ops.launch_floor(plan),
+         "foreach_add": lambda: torch._foreach_add_(ys, gs, alpha=-eta)},
+        kernel, lambda: ops.scaffold_update(*q, eta, out=q[0]))
     n = sum(v.numel() for v in y.values())
     nbytes = 4 * n * 4
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"scaffold_update at the MLP tree ({n} fp32, {len(y)} leaves, 1 "
-        f"group): card time a call, kernel {spread(dev['kernel'])}, plain "
-        f"{spread(dev['plain'])}; bound {bound:.5f} ms (bytes, "
-        f"{nbytes / 1e6:.2f} MB: 4 tree-sized passes, L2 flushed); kernel "
-        f"vs plain 0 ulp (max |diff| {err:.1e})")
-    result["b1"].update(mlp_ms=statistics.median(dev["kernel"]),
-                        mlp_plain_ms=statistics.median(dev["plain"]),
-                        mlp_bound_ms=bound)
+        f"group; grid {plan.grid} over {plan.first[-1]} chunks, table of "
+        f"{plan.capacity}): card time a call, kernel {spread(t['turns'])}, "
+        f"its empty launch {t['floor']:.4f}, plain {t['plain']:.4f}, "
+        f"torch._foreach_add_(ys, gs) {t['foreach_add']:.4f} ms; bound "
+        f"{bound:.5f} ms (bytes, {nbytes / 1e6:.2f} MB: 4 tree-sized passes, "
+        f"L2 flushed); wrapper host time {t['host_us']:.1f} us a call; the "
+        f"1024 leaf {t['quad']:.4f} ms card time; kernel vs plain 0 ulp "
+        f"(max |diff| {err:.1e})")
+    result["b1"].update(
+        mlp_ms=t["kernel"], mlp_plain_ms=t["plain"], mlp_bound_ms=bound,
+        mlp_floor_ms=t["floor"], mlp_foreach_add_ms=t["foreach_add"],
+        host_us=t["host_us"], quad_ms=t["quad"],
+        quad_bound_ms=4 * 1024 * 4 / HBM_BYTES_PER_S * 1e3)
 
 
 def _time_b2_mlp(tr, spec, result):
     """B2 at the MLP tree (216,894 fp32, fp32 slot, one dtype group), as
     phase 17's local heavy-ball runs it: against the plain version
-    (bounds 1 ulp in y', 0 ulp in m', as phase 4), then card time a call
-    (``card_ms``, L2 flushed) of the kernel and of its plain version in
-    turns, beside its bound by bytes: y, g, the correction and m read,
-    y' and m' written."""
+    (bounds 1 ulp in y', 0 ulp in m', as phase 4), then timed as B1 in
+    phase 16 (``_time_b1_mlp``), beside its bound by bytes: y, g, the
+    correction and m read, y' and m' written."""
     import torch
 
     from repro_torch.kernels.scaffold_update import ops, ref
@@ -1581,26 +1701,38 @@ def _time_b2_mlp(tr, spec, result):
         f"{err:.1e}")
     if uy > 1 or um > 0:
         raise AssertionError(f"B2 at the MLP tree: {uy}/{um} ulp (y', m')")
-    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
-    fns = {"kernel": lambda: ops.scaffold_momentum_update_packed(
-               y, g, corr, m, eta, beta, out=y, m_out=m),
-           "plain": lambda: ref.scaffold_momentum_update_tree_ref(
-               y, g, corr, m, eta, beta)}
-    dev = {k: [] for k in fns}
-    for turn in range(4):
-        for k in (list(fns) if turn % 2 == 0 else list(fns)[::-1]):
-            dev[k].append(card_ms(fns[k], 20, flush, 1_000_000))
+    (plan,) = ops.plans(y, g, corr, m)
+    ys, gs = list(y.values()), list(g.values())
+    q = [torch.randn(1024, generator=gen, device="cuda") for _ in range(4)]
+
+    def kernel():
+        ops.scaffold_momentum_update_packed(y, g, corr, m, eta, beta, out=y,
+                                            m_out=m)
+
+    t = _time_small_trees(
+        {"kernel": kernel,
+         "plain": lambda: ref.scaffold_momentum_update_tree_ref(
+             y, g, corr, m, eta, beta),
+         "floor": lambda: ops.launch_floor(plan, momentum=True),
+         "foreach_add": lambda: torch._foreach_add_(ys, gs, alpha=-eta)},
+        kernel, lambda: ops.scaffold_momentum_update(
+            *q, eta, beta, out=q[0], m_out=q[3]))
     n = sum(v.numel() for v in y.values())
     nbytes = 6 * n * 4
     bound = nbytes / HBM_BYTES_PER_S * 1e3
     log(f"scaffold_momentum_update at the MLP tree ({n} fp32, fp32 slot, "
-        f"{len(y)} leaves, 1 group): card time a call, kernel "
-        f"{spread(dev['kernel'])}, plain {spread(dev['plain'])}; bound "
-        f"{bound:.5f} ms (bytes, {nbytes / 1e6:.2f} MB: 6 tree-sized "
-        f"passes, L2 flushed)")
-    result["b2"].update(mlp_ms=statistics.median(dev["kernel"]),
-                        mlp_plain_ms=statistics.median(dev["plain"]),
-                        mlp_bound_ms=bound, mlp_max_abs_err=err)
+        f"{len(y)} leaves, 1 group; grid {plan.grid}): card time a call, "
+        f"kernel {spread(t['turns'])}, its empty launch {t['floor']:.4f}, "
+        f"plain {t['plain']:.4f}, torch._foreach_add_(ys, gs) "
+        f"{t['foreach_add']:.4f} ms; bound {bound:.5f} ms (bytes, "
+        f"{nbytes / 1e6:.2f} MB: 6 tree-sized passes, L2 flushed); wrapper "
+        f"host time {t['host_us']:.1f} us a call; the 1024 leaf "
+        f"{t['quad']:.4f} ms card time")
+    result["b2"].update(
+        mlp_ms=t["kernel"], mlp_plain_ms=t["plain"], mlp_bound_ms=bound,
+        mlp_max_abs_err=err, mlp_floor_ms=t["floor"],
+        mlp_foreach_add_ms=t["foreach_add"], host_us=t["host_us"],
+        quad_ms=t["quad"], quad_bound_ms=6 * 1024 * 4 / HBM_BYTES_PER_S * 1e3)
 
 
 def phase_emnist_table5(result):

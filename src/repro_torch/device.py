@@ -2,12 +2,16 @@
 caller asks for the CPU, and never fall back to it."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
+@functools.lru_cache(maxsize=64)
 def resolve_device(device="cuda") -> torch.device:
     """``torch.device(device)``; raises when it names CUDA and no CUDA
-    device is present (no silent fallback to the CPU)."""
+    device is present (no silent fallback to the CPU). Cached: the fused
+    steps resolve their device at every local step."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

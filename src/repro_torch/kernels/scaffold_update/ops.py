@@ -18,17 +18,28 @@
                                    and ``m'`` written in place when the
                                    caller asks (the momentum solver does).
 
+A launch walks its group in chunks of ``CHUNK`` elements on a flat grid
+(``update_plan``, pure, so the CPU tests reach it). The wrappers check a
+tree once per signature (keys, shapes, dtypes, contiguity and devices of
+every leaf, never its data pointers) and keep the validated groups and
+their plans; a later call with that signature reads only the leaves'
+data pointers. A call that changes any of these is checked again and
+raises as the first would.
+
 Each wrapper takes the ``device`` it runs on (``"cuda"`` by default,
 which raises where there is no CUDA device) and refuses tensors that lie
 elsewhere. For tensors on the CPU it runs the plain version (``ref.py``);
 for CUDA tensors it launches the kernel or raises. ``LAUNCHES`` counts the
 kernel launches of this process, by kernel name; a wrapper adds one where
-it launches, nowhere else.
+it launches, nowhere else (a group with no element launches nothing).
 """
 from __future__ import annotations
 
+import array
 import ctypes
-from typing import Dict, Optional
+import dataclasses
+import functools
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,7 +52,11 @@ LAUNCHES: Dict[str, int] = {
     "scaffold_local_loop": 0, "scaffold_momentum_local_loop": 0}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_LEAVES = 256  # leaf table size of one launch (scaffold_update.cu)
+CAPACITIES = (4, 256)  # leaf tables of one launch (LeafTable<Cap>)
+MAX_LEAVES = CAPACITIES[-1]
+CHUNK = 2048  # elements a chunk (kChunk; the library is checked against it)
+ROLES = ("y", "g", "corr", "out", "m", "m_out")
+CACHE_SIZE = 64  # tree signatures whose validated groups are kept
 
 
 def reset_launches() -> None:
@@ -50,65 +65,101 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class UpdatePlan:
+    """One launch's layout over a dtype group: a leaf table of
+    ``capacity`` entries; leaf i owns chunks ``first[i]`` to ``first[i +
+    1] - 1``, chunk j of a leaf its elements ``[j*CHUNK, min(n, (j +
+    1)*CHUNK))``; block b of ``grid`` takes chunks b, b + grid, ... A
+    group with no element has grid 0 and is not launched."""
+    capacity: int
+    first: Tuple[int, ...]
+    grid: int
+
+
+def table_capacity(n_leaves: int) -> int:
+    """The smallest leaf table that takes a group of ``n_leaves``; raises
+    ValueError past ``MAX_LEAVES``."""
+    if not 1 <= n_leaves <= MAX_LEAVES:
+        raise ValueError(f"scaffold_update: a dtype group of {n_leaves} "
+                         f"leaves; the kernel's table takes 1 to "
+                         f"{MAX_LEAVES}")
+    return next(c for c in CAPACITIES if c >= n_leaves)
+
+
+def update_plan(sizes: Sequence[int], wave: int) -> UpdatePlan:
+    """The plan of a group of leaves of ``sizes`` elements on a card that
+    holds ``wave`` blocks at once (SMs x blocks an SM): the smallest table
+    that takes the group, the chunk prefix (a zero-element leaf has no
+    chunk, a 62-element one one), and a grid of ``min(chunks, wave)``
+    blocks, none without work. A leaf's 16-B alignment is read from its
+    pointers at each launch and does not change the plan: the chunks of a
+    misaligned leaf take the scalar path. Raises ValueError past
+    ``MAX_LEAVES`` leaves."""
+    capacity = table_capacity(len(sizes))
+    if wave < 1 or min(sizes) < 0:
+        raise ValueError(f"update_plan: wave {wave}, sizes {list(sizes)}")
+    first = [0]
+    for n in sizes:
+        first.append(first[-1] + -(-n // CHUNK))
+    return UpdatePlan(capacity, tuple(first), min(first[-1], wave))
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
     lib = build.load("scaffold_update")
-    fn = lib.scaffold_update_group
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    lib.scaffold_update_group.argtypes = ([ctypes.c_void_p] * 2
+                                          + [ctypes.c_float] * 2
+                                          + [ctypes.c_void_p])
+    lib.scaffold_update_group.restype = ctypes.c_int
+    lib.scaffold_update_blocks_per_sm.argtypes = [ctypes.c_int] * 5
+    lib.scaffold_update_blocks_per_sm.restype = ctypes.c_int
+    lib.scaffold_update_floor.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.scaffold_update_floor.restype = ctypes.c_int
+    lib.scaffold_update_chunk.restype = ctypes.c_int
+    if lib.scaffold_update_chunk() != CHUNK:
+        raise RuntimeError(f"scaffold_update: the library's chunk is "
+                           f"{lib.scaffold_update_chunk()} elements, the "
+                           f"planner's {CHUNK}")
+    return lib
 
 
-def _check_cuda_leaf(name, y, g, corr, out, m=None, m_out=None):
-    for what, t in (("y", y), ("g", g), ("corr", corr), ("out", out),
-                    ("m", m), ("m_out", m_out)):
-        if t is None:
-            continue
+@functools.lru_cache(maxsize=None)
+def _wave(device: int, codes: Tuple[int, ...], capacity: int) -> int:
+    """Blocks the card holds at once of the kernel for dtype ``codes``
+    (y, g, corr[, m]) and a table of ``capacity``."""
+    with torch.cuda.device(device):
+        per_sm = _lib().scaffold_update_blocks_per_sm(
+            *codes[:3], int(len(codes) == 4), capacity)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if per_sm < 1:
+        raise RuntimeError(f"scaffold_update: occupancy query failed "
+                           f"({-per_sm})")
+    return per_sm * sms
+
+
+def _check_leaf(name, k, leaves) -> None:
+    y = leaves[0]
+    for what, t in zip(ROLES, leaves):
         if t.device != y.device:
-            raise ValueError(f"{name}: {what} on {t.device}, y on {y.device}")
+            raise ValueError(f"{name}: {what}[{k!r}] on {t.device}, y on "
+                             f"{y.device}")
         if t.dtype not in DTYPE_CODES:
-            raise TypeError(f"{name}: {what} dtype {t.dtype} not in "
+            raise TypeError(f"{name}: {what}[{k!r}] dtype {t.dtype} not in "
                             f"{list(DTYPE_CODES)}")
         if t.shape != y.shape:
-            raise ValueError(f"{name}: {what} shape {tuple(t.shape)} != "
-                             f"y shape {tuple(y.shape)}")
+            raise ValueError(f"{name}: {what}[{k!r}] shape "
+                             f"{tuple(t.shape)} != y shape {tuple(y.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"{name}: {what} is not contiguous")
-    if out.dtype != y.dtype:
-        raise TypeError(f"{name}: out dtype {out.dtype} != y dtype {y.dtype}")
-    for what, t in (("m", m), ("m_out", m_out)):
-        if t is not None and t.dtype != torch.float32:
-            raise TypeError(f"{name}: {what} dtype {t.dtype}; the heavy-ball "
-                            f"slot is fp32")
-
-
-def _launch_group(ys, gs, cs, outs, eta: float, ms=None, m_outs=None,
-                  beta: float = 0.0) -> None:
-    """One kernel launch over a dtype group of CUDA leaves: B1, or B2 when
-    the slot leaves ``ms``/``m_outs`` are given."""
-    name = "scaffold_update" if ms is None else "scaffold_momentum_update"
-    n = len(ys)
-    if n > MAX_LEAVES:
-        raise ValueError(f"{name}: a dtype group of {n} leaves exceeds the "
-                         f"kernel's table of {MAX_LEAVES}")
-    # the pointer tables stay referenced here until the call returns
-    table = lambda ts: (ctypes.c_void_p * n)(  # noqa: E731
-        *[t.data_ptr() for t in ts])
-    tables = [table(ts) for ts in (ys, gs, cs, outs)]
-    if ms is not None:
-        tables += [table(ms), table(m_outs)]
-    py, pg, pc, po, *slots = (ctypes.addressof(t) for t in tables)
-    pm, pmo = slots or (None, None)
-    sizes = (ctypes.c_longlong * n)(*[t.numel() for t in ys])
-    fn = _lib()
-    with torch.cuda.device(ys[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(DTYPE_CODES[ys[0].dtype], DTYPE_CODES[gs[0].dtype],
-                 DTYPE_CODES[cs[0].dtype], n, py, pg, pc, pm, po, pmo,
-                 ctypes.addressof(sizes), float(eta), float(beta), stream)
-    build.check(err, name)
-    LAUNCHES[name] += 1
+            raise ValueError(f"{name}: {what}[{k!r}] is not contiguous")
+    if leaves[3].dtype != y.dtype:
+        raise TypeError(f"{name}: out dtype {leaves[3].dtype} != y dtype "
+                        f"{y.dtype}")
+    for what, t in zip(ROLES[4:], leaves[4:]):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {what}[{k!r}] dtype {t.dtype}; the "
+                            f"heavy-ball slot is fp32")
 
 
 def dtype_groups(y, g, corr, m=None) -> Dict[tuple, list]:
@@ -123,6 +174,99 @@ def dtype_groups(y, g, corr, m=None) -> Dict[tuple, list]:
     return groups
 
 
+class _Group(NamedTuple):
+    keys: Tuple[str, ...]
+    plan: Optional[UpdatePlan]  # None on the CPU
+    args: Optional[array.array]  # the launcher's int64 plan
+    device: Optional[int]  # CUDA device index
+    take: Tuple[int, ...]  # the leaves of each role, in ``_groups``' list
+
+
+def _validate(name, roles, dev, pos) -> Tuple[_Group, ...]:
+    """Check a tree once (structure, devices, dtypes, shapes, contiguity)
+    and plan a launch per dtype group on the card. ``pos[r]`` is the
+    position of role r's dict among the distinct dicts of ``roles``."""
+    y = roles[0]
+    for what, t in zip(ROLES[1:], roles[1:]):
+        if t.keys() != y.keys():
+            raise ValueError(f"{name}: {what} structure differs from y")
+    for k in y:
+        leaves = [t[k] for t in roles]
+        for what, t in zip(ROLES, leaves):
+            check_on(f"{name} {what}[{k!r}]", t, dev)
+        _check_leaf(name, k, leaves)
+    index = {k: i for i, k in enumerate(y)}
+    groups = []
+    m = roles[4] if len(roles) > 4 else None
+    for (device, *dtypes), keys in dtype_groups(*roles[:3], m).items():
+        take = tuple(p * len(y) + index[k] for p in pos for k in keys)
+        if dev.type == "cpu":
+            groups.append(_Group(tuple(keys), None, None, None, take))
+            continue
+        codes = tuple(DTYPE_CODES[d] for d in dtypes)
+        sizes = [y[k].numel() for k in keys]
+        plan = update_plan(sizes, _wave(device.index, codes,
+                                        table_capacity(len(keys))))
+        args = array.array("q", [*codes[:3], int(m is not None), len(keys),
+                                 plan.capacity, plan.grid, *sizes,
+                                 *plan.first])
+        groups.append(_Group(tuple(keys), plan, args, device.index, take))
+    return tuple(groups)
+
+
+_VALIDATED: Dict[tuple, Tuple[_Group, ...]] = {}
+
+
+def _groups(name, roles, dev):
+    """``(groups, leaves)``: the validated groups of a tree, from the
+    cache when its signature (keys, which roles share a dict, and each
+    leaf's dtype, shape, device and contiguity) was seen, and the leaves
+    of its distinct dicts in one list (``out`` passed as the ``y`` dict
+    itself is read once)."""
+    distinct, pos = [], []
+    for t in roles:
+        for j, d in enumerate(distinct):
+            if d is t:
+                pos.append(j)
+                break
+        else:
+            pos.append(len(distinct))
+            distinct.append(t)
+    keys = tuple(roles[0])
+    try:
+        leaves = [t[k] for t in distinct for k in keys]
+    except KeyError:  # a tree without one of y's keys: _validate raises
+        leaves, sig = None, None
+    else:
+        sig = (name, dev.type, keys, tuple(pos), tuple(map(len, distinct)),
+               tuple((t.dtype, t.shape, t.device, t.is_contiguous())
+                     for t in leaves))
+    groups = _VALIDATED.get(sig)
+    if groups is None:
+        groups = _validate(name, roles, dev, pos)
+        if len(_VALIDATED) >= CACHE_SIZE:
+            _VALIDATED.clear()
+        _VALIDATED[sig] = groups
+    return groups, leaves
+
+
+def _launch(kernel, grp: _Group, ptrs, eta: float, beta: float) -> None:
+    """One launch of B1 (B2) over a validated group; ``ptrs`` the data
+    pointers of ``_groups``' leaves."""
+    # the pointer array stays referenced here until the call returns
+    table = array.array("q", map(ptrs.__getitem__, grp.take))
+    fn = _lib().scaffold_update_group
+    if grp.device == torch.cuda.current_device():
+        err = fn(grp.args.buffer_info()[0], table.buffer_info()[0], eta,
+                 beta, torch._C._cuda_getCurrentRawStream(grp.device))
+    else:
+        with torch.cuda.device(grp.device):
+            err = fn(grp.args.buffer_info()[0], table.buffer_info()[0], eta,
+                     beta, torch._C._cuda_getCurrentRawStream(grp.device))
+    build.check(err, kernel)
+    LAUNCHES[kernel] += 1
+
+
 def _packed(name, y, g, corr, out, eta: float, m=None, m_out=None,
             beta: float = 0.0, device="cuda") -> None:
     """The tree-level body of both packed wrappers: ``out`` (and, for the
@@ -130,16 +274,8 @@ def _packed(name, y, g, corr, out, eta: float, m=None, m_out=None,
     the plain version on the CPU and by one launch per dtype group on the
     card."""
     dev = resolve_device(device)
-    trees = {"g": g, "corr": corr, "out": out}
-    if m is not None:
-        trees.update(m=m, m_out=m_out)
-    for what, t in trees.items():
-        if t.keys() != y.keys():
-            raise ValueError(f"{name}: {what} structure differs from y")
-    for k, yy in y.items():
-        check_on(f"{name} y[{k!r}]", yy, dev)
-        for what, t in trees.items():
-            check_on(f"{name} {what}[{k!r}]", t[k], dev)
+    roles = (y, g, corr, out) if m is None else (y, g, corr, out, m, m_out)
+    groups, leaves = _groups(name, roles, dev)
     if dev.type == "cpu":
         for k, yy in y.items():
             if m is None:
@@ -150,14 +286,35 @@ def _packed(name, y, g, corr, out, eta: float, m=None, m_out=None,
                 out[k].copy_(y_new)
                 m_out[k].copy_(m_new)
         return
-    for k, yy in y.items():
-        slot = () if m is None else (m[k], m_out[k])
-        _check_cuda_leaf(name, yy, g[k], corr[k], out[k], *slot)
-    for keys in dtype_groups(y, g, corr, m).values():
-        pick = lambda tree: [tree[k] for k in keys]  # noqa: E731
-        _launch_group(pick(y), pick(g), pick(corr), pick(out), eta,
-                      ms=None if m is None else pick(m),
-                      m_outs=None if m is None else pick(m_out), beta=beta)
+    kernel = "scaffold_update" if m is None else "scaffold_momentum_update"
+    ptrs = [t.data_ptr() for t in leaves]
+    eta, beta = float(eta), float(beta)
+    for grp in groups:
+        if grp.plan.grid:
+            _launch(kernel, grp, ptrs, eta, beta)
+
+
+def plans(y, g, corr, m=None) -> Tuple[UpdatePlan, ...]:
+    """The launch plans of a tree of CUDA leaves, one a dtype group, as
+    the packed wrappers launch them (out and m_out in place)."""
+    roles = (y, g, corr, y) if m is None else (y, g, corr, y, m, m)
+    name = ("scaffold_update_packed" if m is None
+            else "scaffold_momentum_update_packed")
+    groups, _ = _groups(name, roles, resolve_device("cuda"))
+    return tuple(grp.plan for grp in groups)
+
+
+def launch_floor(plan: UpdatePlan, *, momentum: bool = False,
+                 device="cuda") -> None:
+    """The empty kernel with ``plan``'s leaf table (B2's with
+    ``momentum``) on its grid: the floor of one launch. Not a B1/B2
+    launch, and not counted."""
+    dev = resolve_device(device)
+    with torch.cuda.device(dev):
+        err = _lib().scaffold_update_floor(
+            plan.capacity, int(momentum), plan.grid,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "scaffold_update_floor")
 
 
 def scaffold_update(y, g, corr, eta: float, *,

@@ -15,10 +15,14 @@ round an fp32 result once; the fp32 results differ by the order of their
 sums, which exceeds an ulp only below 2^-8).
 """
 import math
+import sys
+from pathlib import Path
 
 import pytest
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import B12_CASES  # noqa: E402  the card script's own table
 from repro_torch.kernels.scaffold_update import megakernel as mk
 from repro_torch.kernels.scaffold_update import ops, ref
 from repro_torch.kernels.swa_attention import ops as swa_ops
@@ -537,3 +541,87 @@ def test_codec_and_privacy_round_on_the_card_matches_the_cpu():
     for k, v in xh.items():
         assert (xc[k] - v).abs().max() <= 1e-4 * v.abs().max(), k
     assert any(v.any() for v in rc.values())
+
+
+# ------------------------------------- B1 and B2 on a flat grid of chunks
+
+
+def _leaf_trees(sizes, dtype, seed, views=(), corr_dtype=None):
+    """y, g, corr and an fp32 slot m of leaves ``l<i>`` with ``sizes``
+    elements (corr in ``corr_dtype``, by default y's); the leaves whose
+    index is in ``views`` are 4 bytes past an aligned base (misaligned
+    views)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    trees = [{}, {}, {}, {}]
+    for i, n in enumerate(sizes):
+        for t, dt in zip(trees, (dtype, dtype, corr_dtype or dtype,
+                                 torch.float32)):
+            base = torch.randn(n + 1, generator=gen, device="cuda").to(dt)
+            t[f"l{i}"] = base[1:] if i in views else base[:n].clone()
+    return trees
+
+
+def _worst_ulp(got, want):
+    return max((ulp_distance(got[k], want[k]) for k in got
+                if got[k].numel()), default=0)
+
+
+
+
+@pytest.mark.parametrize("case", list(B12_CASES))
+@pytest.mark.parametrize("slot", [False, True], ids=["B1", "B2"])
+def test_b1_b2_cases_match_plain_twice_bitwise(case, slot):
+    """The plain version to 0 ulp (fp32 y', m') or 1 ulp (bf16 y'), one
+    launch per group, two launches bitwise equal, and a plan with no
+    block without work."""
+    sizes, dtype, corr_dtype, views = B12_CASES[case]
+    dtype = getattr(torch, dtype)
+    y, g, c, m = _leaf_trees(sizes, dtype, len(sizes), views,
+                             getattr(torch, corr_dtype))
+    name = "scaffold_momentum_update" if slot else "scaffold_update"
+    runs = []
+    for _ in range(2):
+        before = ops.LAUNCHES[name]
+        if slot:
+            runs.append(ops.scaffold_momentum_update_packed(y, g, c, m, 0.3,
+                                                            0.9))
+        else:
+            runs.append((ops.scaffold_update_packed(y, g, c, 0.3), {}))
+        assert ops.LAUNCHES[name] == before + 1
+    for (y1, m1), (y2, m2) in zip(runs[:1], runs[1:]):
+        assert all(torch.equal(y1[k], y2[k]) for k in y)
+        assert all(torch.equal(m1[k], m2[k]) for k in m1)
+    if slot:
+        want_y, want_m = ref.scaffold_momentum_update_tree_ref(y, g, c, m,
+                                                               0.3, 0.9)
+        assert _worst_ulp(runs[0][1], want_m) == 0
+    else:
+        want_y = {k: ref.scaffold_update_ref(y[k], g[k], c[k], 0.3)
+                  for k in y}
+    assert _worst_ulp(runs[0][0], want_y) <= (dtype == torch.bfloat16)
+    (plan,) = ops.plans(y, g, c, m if slot else None)
+    assert 1 <= plan.grid <= plan.first[-1]
+    assert plan.first[-1] == sum(-(-n // ops.CHUNK) for n in sizes)
+
+
+def test_b1_refuses_a_group_of_257_leaves():
+    y, g, c, _ = _leaf_trees([3] * 257, torch.float32, 257)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="257 leaves"):
+        ops.scaffold_update_packed(y, g, c, 0.1)
+    assert ops.LAUNCHES == before
+
+
+def test_b1_group_of_empty_leaves_launches_nothing():
+    y, g, c, _ = _leaf_trees([0, 0], torch.float32, 2)
+    before = dict(ops.LAUNCHES)
+    out = ops.scaffold_update_packed(y, g, c, 0.1)
+    assert ops.LAUNCHES == before and out["l0"].shape == (0,)
+
+
+def test_launch_floor_runs_on_every_table():
+    for n_leaves in (1, 4, 5, 16, 17, 64, 65, 256):
+        plan = ops.update_plan([ops.CHUNK] * n_leaves, 132)
+        for momentum in (False, True):
+            ops.launch_floor(plan, momentum=momentum)
+    torch.cuda.synchronize()
