@@ -46,8 +46,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
   14. quadratics, heavy-ball (scaffold_m, local momentum): the B4 path and
      the per-step B2 path, launch counts, plans and agreement, B4 timed
   15. quadratics, sgd_sched (cosine) with server adam through B3; local
-     adam and fedprox fall back to the per-step path by the reference's
-     reasons
+     adam, fedprox and the head_only update space fall back to the
+     per-step path by the reference's reasons (no B3/B4 launch)
   16. the paper's Table 5 (EMNIST-like, the 784-256-62 MLP, N 50, S 10,
      K 25, 150 rounds, similarity 0 and 10): SGD, FedAvg and SCAFFOLD,
      SCAFFOLD's local steps through B1; best test accuracy, seconds a
@@ -62,6 +62,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the accountant, B2 held against its plain version and timed as B1
      in phase 16, one int8 + server-noise round on the card against the
      CPU, and one heavy-ball round through B2 against the plain update
+  18. LoRA on llama3.2-3b at its published widths, 28 layers, bf16,
+     through ``repro_torch.launch.train.main``: rank 8 on the default
+     targets, SCAFFOLD, N 4, S 2, K 2, seq 256, 3 rounds and a profiled
+     fourth; B1 S x K times a round on the one fp32 group of 14 leaves,
+     bytes_up/down of the 12,156,928-element delta tree, s/round,
+     tokens/s, peak memory; B1 and B2 timed on the tree
+  19. LoRA on gemma3-1b at its published widths, 26 layers, seq 2048,
+     through the entry point: 3 unbroken rounds; 2 rounds, a checkpoint,
+     and a fresh trainer that resumes and runs round 3, bitwise the
+     unbroken run; ``load_serving_params`` bitwise the saving trainer's
+     ``eval_params()``; B5 on the 22 "W" layers, B1 on the 126-leaf tree
+     (timed)
+  20. head_only on gemma3-1b (embed, ln_final; bf16), 2 rounds through the
+     entry point: B1 on the bf16 2-leaf group (timed), the bytes
+  21. the update spaces card against CPU at reduced depth: lora,
+     head_only, and lora with local heavy-ball (B2 on the delta tree)
 
 Each main path runs with every launch count set to 0 just before it and
 read just after. B1's and B2's ``launches`` in the kernels line sum every
@@ -852,36 +868,39 @@ def phase_b5_plain(result):
     torch.cuda.empty_cache()
 
 
-def _card_vs_cpu_round(arch: str, seq_len: int):
+def _card_vs_cpu_round(arch: str, seq_len: int, **changes):
     """One SCAFFOLD round of ``arch``'s reduced fp32 config on the card
-    (kernels) and on the CPU (plain versions) from the same weights;
-    returns the max leaf rel err of x, each side's launch counts and the
-    round's local steps (S x K)."""
+    (kernels) and on the CPU (plain versions) from the same weights, the
+    spec changed by ``changes`` (an update space, a local solver; the
+    LoRA init draws the same numpy normals on both sides); returns the
+    max leaf rel err of x (the delta tree under a subset space), each
+    side's launch counts and the round's local steps (S x K)."""
     import torch
 
     from repro_torch.configs import get_reduced
     from repro_torch.configs.base import FedRoundSpec
-    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import FederatedTrainer, streams
     from repro_torch.data import SyntheticLMFederated
     from repro_torch.models import model as M
 
     cfg = get_reduced(arch)
     spec = FedRoundSpec(algorithm="scaffold", num_clients=4, num_sampled=2,
                         local_steps=2, local_batch=1, eta_l=0.05,
-                        strategy="client_sequential")
+                        strategy="client_sequential", **changes)
     p0 = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     xs, counts = {}, {}
     for dev in ("cuda", "cpu"):
-        tr = FederatedTrainer(partial(M.loss_fn, cfg),
-                              lambda gen: {k: v.clone() for k, v in p0.items()},
-                              spec, SyntheticLMFederated(4, cfg.vocab_size,
-                                                         seq_len),
-                              seed=0, use_fused_update=True, device=dev)
+        with streams.injected(_numpy_normals):
+            tr = FederatedTrainer(
+                partial(M.loss_fn, cfg),
+                lambda gen: {k: v.clone() for k, v in p0.items()}, spec,
+                SyntheticLMFederated(4, cfg.vocab_size, seq_len), seed=0,
+                use_fused_update=True, device=dev)
         reset_launches()
         tr.run_round()
         counts[dev] = launches()
         xs[dev] = {k: v.cpu() for k, v in tr.x.items()}
-    err = max(rel_err(xs["cuda"][k], xs["cpu"][k]) for k in p0)
+    err = max(rel_err(xs["cuda"][k], xs["cpu"][k]) for k in xs["cpu"])
     return err, counts, spec.num_sampled * spec.local_steps
 
 
@@ -915,14 +934,21 @@ def phase_gemma_small():
         raise AssertionError(f"gemma check launches {counts}")
 
 
-def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0):
+def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
+             subset=None):
     """Reckoned peak device bytes of an LM phase at cfg's depth: the
     param-sized bf16 trees resident at once (x, c, the dy and dc sums, the
     client's c_i, c - c_i, its working copy y, and the grads or, after the
     steps, c_i_new and dc: 8), the client's solver slot (``slot_bytes`` a
     parameter), plus activations (the S^2 scores of the "F" layers only:
     a "W" layer keeps its q, k and v and recomputes its band in the
-    backward pass) and temporaries (the CE's vocab chunks among them)."""
+    backward pass) and temporaries (the CE's vocab chunks among them).
+
+    ``subset`` = (target params, delta-tree bytes) plans an update space
+    that trains a subset instead: the frozen bf16 base, the targets
+    merged and their bf16 gradients (2 target-sized trees), the merge's
+    and the projection's fp32 temporaries of the largest target (3), and
+    the 8 trees above at the delta tree's size."""
     from repro_torch.models.model import count_params_analytic
 
     n = count_params_analytic(cfg)
@@ -935,6 +961,10 @@ def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0):
     largest = 2 * cfg.num_layers * e * f
     temps = (2 * 2 * cfg.vocab_size * e + 4 * largest
              + 4 * t * cfg.loss_chunk_vocab * 4)
+    if subset is not None:
+        n_t, delta_bytes = subset
+        trees = tree + 2 * 2 * n_t + 3 * 2 * largest + 8 * delta_bytes
+        return n, tree, trees + act + temps
     return n, tree, 8 * tree + slot_bytes * n + act + temps
 
 
@@ -1208,7 +1238,7 @@ def phase_gemma_full(result):
         f"x rounds = {want['scaffold_update']}, nothing else")
     if counts != want:
         raise AssertionError(f"gemma: launches {counts} != {want}")
-    result["b5_launches"] = counts["swa_attention"]
+    result.setdefault("b5_paths", {})["gemma3-1b"] = counts["swa_attention"]
     result.setdefault("b1_paths", {})["gemma3-1b"] = counts["scaffold_update"]
     _profile_round(tr, "gemma", kernels=("swa_fwd_wgmma",
                                          "scaffold_update"))
@@ -1337,6 +1367,460 @@ def phase_lm_momentum(result):
                         bound_ms=bound)
     del y, g, c, mm
     torch.cuda.empty_cache()
+
+
+# the delta trees of this slice's spaces at the published widths
+# (7 stacked LoRA targets x A/B at r 8; gemma3-1b's 9 layer groups x 7 x
+# A/B; gemma3-1b's embed and ln_final)
+LLAMA_LORA_ELEMENTS = 12_156_928
+GEMMA_LORA_ELEMENTS = 6_522_880
+LORA_RANK = 8
+HEAD_TARGETS = "embed,ln_final*"
+
+
+def _space_sizes(cfg, space: str, rank: int = 0):
+    """(params the space's targets hold, elements of its delta tree) at
+    cfg: ``lora`` on the seven matmul weights of every layer, A (in, r)
+    and B (r, out) each; ``head_only`` on ``embed`` and ``ln_final``."""
+    e, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    if space == "lora":
+        shapes = ((e, q), (e, kv), (e, kv), (q, e), (e, f), (e, f), (f, e))
+        return (cfg.num_layers * sum(i * o for i, o in shapes),
+                cfg.num_layers * rank * sum(i + o for i, o in shapes))
+    n = cfg.vocab_size * e + e
+    return n, n
+
+
+def _subset_plan(tag, cfg, seq_len, space, rank=0):
+    """Log the device-memory plan of a subset-space phase at its full
+    depth (these phases run through the entry point at the published
+    config, so depth is not cut: a plan over the limit fails). Returns
+    the delta tree's elements."""
+    n_t, n_delta = _space_sizes(cfg, space, rank)
+    delta_bytes = n_delta * (4 if space == "lora" else 2)
+    n, tree, peak = _lm_plan(cfg, seq_len, 1, subset=(n_t, delta_bytes))
+    log(f"{tag}: {cfg.name} at its published widths, {cfg.num_layers} "
+        f"layers, {n} bf16 params ({tree / 1e9:.2f} GB frozen); {space} "
+        f"targets hold {n_t} params, the delta tree {n_delta} elements "
+        f"({delta_bytes / 1e6:.1f} MB); memory reckoning {peak / 1e9:.1f} GB "
+        f"(limit {LM_MEMORY_LIMIT / 1e9:.0f} GB)")
+    if peak > LM_MEMORY_LIMIT:
+        raise AssertionError(f"{tag}: plan {peak / 1e9:.1f} GB over the "
+                             f"limit")
+    return n_delta
+
+
+def _train_argv(arch: str, seq_len: int, rounds: int, chunk: int, *extra):
+    """``repro_torch.launch.train`` flags of this slice's phases: the
+    published config, SCAFFOLD, N 4, S 2, K 2, batch 1, eta_l 0.01, an
+    eval line after every round."""
+    return ["--arch", arch, "--preset", "full", "--device", "cuda",
+            "--loss-chunk-vocab", str(chunk), "--algorithm", "scaffold",
+            "--clients", "4", "--sampled", "2", "--local-steps", "2",
+            "--local-batch", "1", "--seq-len", str(seq_len), "--eta-l",
+            "0.01", "--rounds", str(rounds), "--log-every", "1", *extra]
+
+
+class _RoundLog:
+    """Within the block every ``FederatedTrainer.run_round`` (those the
+    entry point makes) is timed by the host clock, the card synchronised
+    on both sides, and logged with its tokens/s, peak card and host
+    memory and ``update_space``; ``rows`` keeps each round's metrics and
+    seconds."""
+
+    def __init__(self, tag: str, tokens: int):
+        self.tag, self.tokens, self.rows = tag, tokens, []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core import controller
+
+        cls = controller.FederatedTrainer
+        self._cls, self._inner = cls, cls.run_round
+        inner, rows, tag, tokens = self._inner, self.rows, self.tag, \
+            self.tokens
+
+        def timed(trainer):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = inner(trainer)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            rows.append(dict(m, seconds=sec))
+            log(f"{tag} round {m['round']}: loss {m['loss']:.4f}, drift "
+                f"{m['drift']:.4e}, {sec:.3f} s, {tokens / sec:.1f} tokens/s"
+                f" ({tokens} tokens), peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, peak host"
+                f" memory {host_peak_gb():.1f} GB, update_space "
+                f"{m.get('update_space')!r}, bytes_up {m['bytes_up']:.0f}, "
+                f"bytes_down {m['bytes_down']:.0f}")
+            if not (math.isfinite(m["loss"]) and math.isfinite(m["drift"])):
+                raise AssertionError(f"{tag}: non-finite round {m}")
+            return m
+
+        cls.run_round = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.run_round = self._inner
+        return False
+
+
+def _check_subset_rounds(tag, tr, rows, space, elements, elem_bytes):
+    """Every round's metrics carry ``update_space == space`` and bytes
+    equal to ``round_comm_bytes`` over the delta tree, which holds
+    ``elements`` elements of ``elem_bytes`` bytes: up, dy and dc of S
+    clients; down, x and c to each."""
+    from repro_torch.core import round_comm_bytes
+
+    spec = tr.spec
+    got = sum(v.numel() for v in tr.x.values())
+    want = round_comm_bytes(spec, tr.x, stateful_clients=True)
+    formula = 2 * spec.num_sampled * elements * elem_bytes
+    log(f"{tag}: delta tree {len(tr.x)} leaves, {got} elements (want "
+        f"{elements}); bytes_up {rows[-1]['bytes_up']:.0f} == "
+        f"round_comm_bytes {want['bytes_up']} == 2 x S {spec.num_sampled} x "
+        f"{elements} x {elem_bytes} B = {formula}")
+    if got != elements or want["bytes_up"] != formula or any(
+            r["update_space"] != space or r["bytes_up"] != formula
+            or r["bytes_down"] != want["bytes_down"] for r in rows):
+        raise AssertionError(f"{tag}: rows {rows}, want {want}")
+
+
+def _time_update_tree(tag, x, c, eta, beta=None):
+    """B1 (B2 with ``beta``, a random fp32 slot) on tree ``x`` with the
+    correction ``c``: against the plain version (B1 within 1 ulp; B2 1
+    ulp in y' and 0 in m', as phases 3-4), then kernel and plain version
+    timed in turns by card time a call (``card_ms``, L2 flushed: the
+    spin hides the wrapper's host time, which at 126 leaves exceeds the
+    kernel's), beside the bound by bytes (y, g and corr, and m, read
+    once, y' and m' written once); the kernel's time a call by CUDA
+    events without the spin, and the wrapper's host time a call, beside
+    them."""
+    import torch
+
+    from repro_torch.kernels.scaffold_update import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    y = {k: v.clone() for k, v in x.items()}
+    g = {k: torch.randn(v.shape, generator=gen, device="cuda",
+                        dtype=v.dtype) for k, v in x.items()}
+    corr = {k: c[k].clone() for k in x}
+    m = None if beta is None else {
+        k: torch.randn(v.shape, generator=gen, device="cuda")
+        for k, v in x.items()}
+    err, worst = 0.0, (0, 0)
+    if m is None:
+        out = ops.scaffold_update_packed(y, g, corr, eta)
+        for k in y:
+            plain = ref.scaffold_update_ref(y[k], g[k], corr[k], eta)
+            worst = (max(worst[0], ulp_distance(out[k], plain)), 0)
+            err = max(err, float((out[k].float() - plain.float()).abs().max()))
+        ok = worst[0] <= 1
+
+        def kernel():
+            ops.scaffold_update_packed(y, g, corr, eta, out=y)
+
+        def plain_fn():
+            for k in y:
+                ref.scaffold_update_ref(y[k], g[k], corr[k], eta)
+    else:
+        out_y, out_m = ops.scaffold_momentum_update_packed(y, g, corr, m, eta,
+                                                           beta)
+        for k in y:
+            py, pm = ref.scaffold_momentum_update_ref(y[k], g[k], corr[k],
+                                                      m[k], eta, beta)
+            worst = (max(worst[0], ulp_distance(out_y[k], py)),
+                     max(worst[1], ulp_distance(out_m[k], pm)))
+            err = max(err, float((out_y[k].float() - py.float()).abs().max()),
+                      float((out_m[k] - pm).abs().max()))
+        ok = worst[0] <= 1 and worst[1] == 0
+
+        def kernel():
+            ops.scaffold_momentum_update_packed(y, g, corr, m, eta, beta,
+                                                out=y, m_out=m)
+
+        def plain_fn():
+            for k in y:
+                ref.scaffold_momentum_update_ref(y[k], g[k], corr[k], m[k],
+                                                 eta, beta)
+    if not ok:
+        raise AssertionError(f"{tag}: {worst} ulp from plain")
+    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
+    # spin cycles before a timed call: ~2 ms at the H100's clocks for the
+    # kernel (its wrapper takes ~0.5 ms of host time at 126 leaves), ~10
+    # ms for the plain version's few launches a leaf
+    k_all, p_all = [], []
+    for turn in range(4):
+        for side in (("plain", "kernel") if turn % 2 == 0
+                     else ("kernel", "plain")):
+            if side == "kernel":
+                k_all.append(card_ms(kernel, 10, flush, 4_000_000))
+            else:
+                p_all.append(card_ms(plain_fn, 3, flush, 20_000_000))
+    per_call = cuda_ms(kernel, 10, flush=flush)
+    host = []
+    for _ in range(30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernel()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    host_us = 1e6 * statistics.median(host)
+    n = sum(v.numel() for v in y.values())
+    nbytes = sum(v.numel() * (3 * v.element_size() + corr[k].element_size()
+                              + (0 if m is None else 8))
+                 for k, v in y.items())
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    groups = len(ops.dtype_groups(y, g, corr, m))
+    k_ms, p_ms = statistics.median(k_all), statistics.median(p_all)
+    log(f"{tag} ({n} elements, {len(y)} leaves, {groups} dtype group"
+        f"{'s' if groups > 1 else ''}, y {next(iter(y.values())).dtype}): "
+        f"card time a call, kernel {spread(k_all)}, plain {spread(p_all)}; "
+        f"bound {bound:.4f} ms (bytes, {nbytes / 1e6:.1f} MB, L2 flushed), "
+        f"{nbytes / k_ms / 1e6:.0f} GB/s, {100 * bound / k_ms:.1f} % of the "
+        f"bound; kernel per call with no spin (CUDA events) {per_call:.4f} "
+        f"ms, wrapper host time {host_us:.1f} us a call; max |kernel - "
+        f"plain| {err:.3e}, worst leaf {worst[0]} ulp in y'"
+        + ("" if m is None else f", {worst[1]} in m'"))
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, max_abs_err=err,
+                per_call_ms=per_call, host_us=host_us, elements=n,
+                leaves=len(y), groups=groups)
+
+
+def phase_lora_llama(result):
+    """Phase 18: LoRA on llama3.2-3b at its published widths and all 28
+    layers in bf16, through ``repro_torch.launch.train.main``: rank 8 on
+    the default targets, SCAFFOLD, N 4, S 2, K 2, batch 1, seq 256, 3
+    rounds and a profiled fourth; B1 on the one fp32 group of 14 leaves
+    S x K times a round, the bytes of the delta tree; B1 and B2 timed on
+    the tree."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    seq_len, rounds, chunk = 256, 3, 16032
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              loss_chunk_vocab=chunk)
+    elements = _subset_plan("lora llama", cfg, seq_len, "lora", LORA_RANK)
+    steps, tokens = 2 * 2, 2 * 2 * seq_len
+    reset_launches()
+    t0 = time.perf_counter()
+    with _RoundLog("lora llama", tokens) as rl:
+        tr = train.main(_train_argv(
+            "llama3.2-3b", seq_len, rounds, chunk, "--update-space", "lora",
+            "--lora-rank", str(LORA_RANK)))
+    counts = launches()
+    secs = [r["seconds"] for r in rl.rows]
+    log(f"lora llama: train.main {time.perf_counter() - t0:.1f} s in all; "
+        f"s/round {', '.join(f'{s:.3f}' for s in secs)}, rounds 2-{rounds} "
+        f"mean {statistics.mean(secs[1:]):.3f} s, "
+        f"{tokens / statistics.mean(secs[1:]):.1f} tokens/s")
+    if elements != LLAMA_LORA_ELEMENTS or len(tr.x) != 14 or any(
+            v.dtype != torch.float32 for v in tr.x.values()):
+        raise AssertionError(f"lora llama: delta tree {elements}, "
+                             f"{ {k: v.dtype for k, v in tr.x.items()} }")
+    _check_subset_rounds("lora llama", tr, rl.rows, "lora", elements, 4)
+    want = rounds * steps
+    log(f"lora llama: launches {counts}; want scaffold_update = rounds "
+        f"{rounds} x S x K {steps} x 1 group = {want}, nothing else")
+    if counts["scaffold_update"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"lora llama: launches {counts}")
+    result.setdefault("b1_paths", {})["lora llama3.2-3b"] = want
+    result["b1"].setdefault("trees", {})["llama lora"] = _time_update_tree(
+        "scaffold_update at the llama3.2-3b LoRA tree", tr.x, tr.c, 0.01)
+    result["b2"].setdefault("trees", {})["llama lora"] = _time_update_tree(
+        "scaffold_momentum_update at the llama3.2-3b LoRA tree", tr.x, tr.c,
+        0.01, beta=0.9)
+    _profile_round(tr, "lora_llama", kernels=("scaffold_update",),
+                   want={"scaffold_update": steps}, tries=2)
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+
+def phase_lora_gemma(result):
+    """Phase 19: LoRA on gemma3-1b at its published widths, 26 layers,
+    seq 2048, through the entry point: 3 unbroken rounds; 2 rounds and
+    ``--checkpoint``, then a fresh ``--resume`` runs round 3 and must equal
+    the unbroken run bitwise; the checkpoint serves through
+    ``load_serving_params``, equal to the saving trainer's
+    ``eval_params()``; B5 on every "W" layer, B1 on the fp32 group of 126
+    leaves."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import load_serving_params
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMFederated
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+
+    base = get_config("gemma3-1b")
+    seq_len, chunk = 2048, base.vocab_size // 16
+    cfg = dataclasses.replace(base, loss_chunk_vocab=chunk)
+    elements = _subset_plan("lora gemma", cfg, seq_len, "lora", LORA_RANK)
+    n_w, steps = cfg.pattern_for_layers().count("W"), 2 * 2
+    tokens = steps * seq_len
+    lora = ("--update-space", "lora", "--lora-rank", str(LORA_RANK))
+    ckpt = OUT / "lora_gemma_ckpt"
+
+    def run(tag, rounds, *extra):
+        reset_launches()
+        t0 = time.perf_counter()
+        with _RoundLog(f"lora gemma, {tag}", tokens) as rl:
+            tr = train.main(_train_argv("gemma3-1b", seq_len, rounds, chunk,
+                                        *lora, *extra))
+        counts = launches()
+        # training: B5 on every W layer of every step, B1 on every step;
+        # the entry point's eval after each round: B5 once a W layer
+        want = {k: 0 for k in counts}
+        want.update(swa_attention=rounds * n_w * (steps + 1),
+                    scaffold_update=rounds * steps)
+        log(f"lora gemma, {tag}: train.main {time.perf_counter() - t0:.1f} s"
+            f" in all; launches {counts}; want swa_attention = rounds "
+            f"{rounds} x {n_w} W layers x (S x K {steps} + 1 eval) = "
+            f"{want['swa_attention']}, scaffold_update = rounds x S x K = "
+            f"{want['scaffold_update']}, nothing else")
+        if counts != want:
+            raise AssertionError(f"lora gemma {tag}: launches {counts}")
+        paths = result.setdefault("b1_paths", {})
+        paths["lora gemma3-1b"] = (paths.get("lora gemma3-1b", 0)
+                                   + counts["scaffold_update"])
+        paths = result.setdefault("b5_paths", {})
+        paths["lora gemma3-1b"] = (paths.get("lora gemma3-1b", 0)
+                                   + counts["swa_attention"])
+        return tr, rl.rows
+
+    tr, rows = run("3 rounds unbroken", 3)
+    _check_subset_rounds("lora gemma", tr, rows, "lora", elements, 4)
+    if elements != GEMMA_LORA_ELEMENTS or len(tr.x) != 126:
+        raise AssertionError(f"lora gemma: delta tree {elements}, "
+                             f"{len(tr.x)} leaves")
+    unbroken = {k: v.clone() for k, v in {**tr.x, **{
+        f"c/{k}": v for k, v in tr.c.items()}}.items()}
+    result["b1"].setdefault("trees", {})["gemma lora"] = _time_update_tree(
+        "scaffold_update at the gemma3-1b LoRA tree", tr.x, tr.c, 0.01)
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+    tr, _ = run("rounds 1-2 and --checkpoint", 2, "--checkpoint", str(ckpt))
+    path = str(ckpt) + ".npz"
+    size = Path(path).stat().st_size
+    t0 = time.perf_counter()
+    served = load_serving_params(path)
+    t_load = time.perf_counter() - t0
+    mine = tr.eval_params()
+    apart = [k for k in mine if not torch.equal(served[k], mine[k])]
+    data = SyntheticLMFederated(4, cfg.vocab_size, seq_len)
+    batch = data.eval_batch(8, np.random.default_rng(7), device="cuda")
+    with torch.no_grad():
+        loss = float(M.loss_fn(cfg, served, batch)[0])
+    log(f"lora gemma: checkpoint {size / 1e9:.2f} GB; load_serving_params "
+        f"{t_load:.1f} s, {len(served)} leaves, {len(apart)} apart from the "
+        f"saving trainer's eval_params() (want 0); eval loss of the served "
+        f"params {loss:.4f} (8 x {seq_len} tokens)")
+    if apart or sorted(served) != sorted(mine) or not math.isfinite(loss):
+        raise AssertionError(f"lora gemma: served params apart at {apart}")
+    tr.close()
+    del tr, served, mine
+    torch.cuda.empty_cache()
+
+    tr, _ = run("--resume and round 3", 1, "--resume", path)
+    resumed = {**tr.x, **{f"c/{k}": v for k, v in tr.c.items()}}
+    diff = max(float((resumed[k] - v).abs().max()) for k, v in
+               unbroken.items())
+    apart = [k for k, v in unbroken.items() if not torch.equal(resumed[k], v)]
+    log(f"lora gemma: resumed round 3 against the unbroken run: "
+        f"{len(apart)} of {len(unbroken)} x and c leaves apart (want 0, "
+        f"bitwise), max |diff| {diff:.3e}; round counter {tr.round_idx}")
+    if apart or tr.round_idx != 3:
+        raise AssertionError(f"lora gemma: resume apart at {apart[:5]}")
+    tr.close()
+    del tr, unbroken, resumed
+    Path(path).unlink()
+    torch.cuda.empty_cache()
+
+
+def phase_head_only_gemma(result):
+    """Phase 20: head_only on gemma3-1b (``embed`` and ``ln_final``, bf16)
+    at its published widths, 26 layers, seq 2048, 2 rounds through the
+    entry point: B1 on the bf16 group of 2 leaves, the bytes of the
+    delta tree; B1 timed on it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    base = get_config("gemma3-1b")
+    seq_len, rounds, chunk = 2048, 2, base.vocab_size // 16
+    cfg = dataclasses.replace(base, loss_chunk_vocab=chunk)
+    elements = _subset_plan("head_only gemma", cfg, seq_len, "head_only")
+    n_w, steps = cfg.pattern_for_layers().count("W"), 2 * 2
+    reset_launches()
+    t0 = time.perf_counter()
+    with _RoundLog("head_only gemma", steps * seq_len) as rl:
+        tr = train.main(_train_argv("gemma3-1b", seq_len, rounds, chunk,
+                                    "--update-space", "head_only",
+                                    "--lora-targets", HEAD_TARGETS))
+    counts = launches()
+    if sorted(tr.x) != ["embed", "ln_final.scale"] or any(
+            v.dtype != torch.bfloat16 for v in tr.x.values()):
+        raise AssertionError(f"head_only gemma: delta tree "
+                             f"{ {k: v.dtype for k, v in tr.x.items()} }")
+    _check_subset_rounds("head_only gemma", tr, rl.rows, "head_only",
+                         elements, 2)
+    want = {k: 0 for k in counts}
+    want.update(swa_attention=rounds * n_w * (steps + 1),
+                scaffold_update=rounds * steps)
+    log(f"head_only gemma: train.main {time.perf_counter() - t0:.1f} s in "
+        f"all; launches {counts}; want {want}")
+    if counts != want:
+        raise AssertionError(f"head_only gemma: launches {counts}")
+    result.setdefault("b1_paths", {})["head_only gemma3-1b"] = want[
+        "scaffold_update"]
+    result.setdefault("b5_paths", {})["head_only gemma3-1b"] = want[
+        "swa_attention"]
+    result["b1"].setdefault("trees", {})["gemma head_only"] = (
+        _time_update_tree("scaffold_update at the gemma3-1b head_only tree",
+                          tr.x, tr.c, 0.01))
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+
+def phase_spaces_small(result):
+    """Phase 21: the update spaces card against CPU at reduced depth: one
+    SCAFFOLD round of the 2-layer fp32 llama in ``lora``, ``head_only``
+    and ``lora`` with local heavy-ball (B2 on the delta tree), the same
+    weights and LoRA init on both sides."""
+    for name, changes, kernel in (
+            ("lora", dict(update_space="lora", lora_rank=4),
+             "scaffold_update"),
+            ("head_only", dict(update_space="head_only",
+                               update_targets=HEAD_TARGETS),
+             "scaffold_update"),
+            ("lora heavy-ball", dict(update_space="lora", lora_rank=4,
+                                     local_solver="momentum"),
+             "scaffold_momentum_update")):
+        err, counts, steps = _card_vs_cpu_round("llama3.2-3b", 32, **changes)
+        log(f"spaces check: 2-layer fp32 llama, {name}, one SCAFFOLD round "
+            f"on the card (kernels) vs the CPU (plain): max delta-leaf rel "
+            f"err {err:.2e} (bound 1e-4); card launches {counts['cuda']} "
+            f"(want {kernel} {steps}, nothing else)")
+        if not err <= 1e-4:
+            raise AssertionError(f"spaces check {name}: rel err {err}")
+        if (counts["cuda"][kernel] != steps
+                or sum(counts["cuda"].values()) != steps
+                or any(counts["cpu"].values())):
+            raise AssertionError(f"spaces check {name}: launches {counts}")
+        key = "b1_paths" if kernel == "scaffold_update" else "b2_paths"
+        result.setdefault(key, {})[f"{name} card vs CPU"] = steps
 
 
 def _quad_paths(ds, spec, runs, b_keys, rounds=3, profile=None):
@@ -1515,10 +1999,11 @@ def phase_quad_heavy_ball(ds, result):
     result["b4"] = _time_local_loop(ds, beta=spec.local_momentum)
 
 
-def phase_quad_sched_adam(ds):
+def phase_quad_sched_adam(ds, result):
     """Phase 15: sgd_sched's cosine table through B3 with server adam;
-    local adam and fedprox ask for the K-step kernel and fall back to the
-    per-step path, by the reference's reasons, launching nothing."""
+    local adam, fedprox and the head_only update space ask for the K-step
+    kernel and fall back to the per-step path, by the reference's
+    reasons: no B3 or B4 launch (head_only's steps through B1)."""
     import torch
 
     from repro_torch.configs.base import FedRoundSpec
@@ -1533,11 +2018,18 @@ def phase_quad_sched_adam(ds):
             local_solver="sgd_sched", eta_l_schedule="cosine",
             server_optimizer="adam", eta_g=0.1), (12,)),),
         ("scaffold_local_loop",))
-    for name, changes, want in (
+    grad_reason = ("grad not kernel-expressible (loss_fn lacks "
+                   "megakernel_grad='quadratic')")
+    for name, changes, want, per_step in (
             ("local adam", dict(local_solver="adam", eta_l=0.03),
-             "local solver 'adam' has no megakernel variant"),
+             "local solver 'adam' has no megakernel variant", 0),
             ("fedprox", dict(algorithm="fedprox"),
-             "FedProx prox term is not expressible in the megakernel")):
+             "FedProx prox term is not expressible in the megakernel", 0),
+            # a space that trains a subset differentiates in delta space,
+            # which the K-step kernel cannot: the per-step path, B1
+            ("head_only space", dict(update_space="head_only",
+                                     update_targets="x"), grad_reason,
+             3 * spec.num_sampled * spec.local_steps)):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             tr = FederatedTrainer(quadratic_loss,
@@ -1553,12 +2045,15 @@ def phase_quad_sched_adam(ds):
         counts = launches()
         log(f"quad {name}, use_megakernel=True: UserWarning {bool(caught)}, "
             f"megakernel_fallback_reason {m['megakernel_fallback_reason']!r}"
-            f", launches {counts}; suboptimality "
-            + " -> ".join(f"{s:.4e}" for s in subs))
+            f", launches {counts} (want scaffold_update {per_step}, nothing "
+            f"else); suboptimality " + " -> ".join(f"{s:.4e}" for s in subs))
         if (not caught or m["megakernel_fallback_reason"] != want
-                or any(counts.values())
+                or counts["scaffold_update"] != per_step
+                or sum(counts.values()) != per_step
                 or not all(math.isfinite(v) for v in subs)):
             raise AssertionError(f"quad {name}: {m}, {counts}")
+        if per_step:
+            result.setdefault("b1_paths", {})[f"quadratics {name}"] = per_step
 
 
 # the paper's Table 5 at benchmarks/table5_nn.py's full settings: the
@@ -2075,13 +2570,17 @@ def main() -> int:
     log(f"quad: 20 clients, d=1024 built in {time.perf_counter() - t0:.1f} s")
     phase_quadratics(ds, result)
     phase_quad_heavy_ball(ds, result)
-    phase_quad_sched_adam(ds)
+    phase_quad_sched_adam(ds, result)
     del ds
     phase_emnist_table5(result)
     phase_emnist_codecs(result)
+    phase_lora_llama(result)
+    phase_lora_gemma(result)
+    phase_head_only_gemma(result)
+    phase_spaces_small(result)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     # B1-B4 are bound by bytes and no one PyTorch call computes them
-    for key in ("b1", "b2"):
+    for key in ("b1", "b2", "b5"):
         paths = result.pop(f"{key}_paths")
         result[f"{key}_launches"] = sum(paths.values())
         result[key]["launches_by_path"] = paths

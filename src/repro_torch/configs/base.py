@@ -2,36 +2,15 @@
 
 A copy of the JAX package's ``configs/base.py`` (``ModelConfig`` and
 ``FedRoundSpec``), field for field, so that a spec means the same in both
-packages. The JAX package validates a spec against its live registries;
-this package holds the same registered names as constant tuples, because
-several of those registries are not ported yet (their engines raise
-``NotImplementedError`` when a spec selects them).
+packages. ``FedRoundSpec`` validates its names against the port's live
+registries, as the reference does, so a name registered at run time
+(``repro_torch.core.register_algorithm``, ``register_compressor``, ...)
+builds a spec.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
-
-# names registered in the JAX package's registries (core/api.py,
-# core/compression.py, core/local_solver.py, core/privatizer.py,
-# core/update_space.py, optim/schedules.py)
-ALGORITHM_NAMES = ("fedavg", "fedavgm", "fedprox", "scaffold", "scaffold_m",
-                   "sgd")
-SERVER_OPTIMIZER_NAMES = ("adam", "momentum", "sgd")
-COMPRESSOR_NAMES = ("int8_ef", "none", "randk_ef", "sign_ef", "topk_ef")
-LOCAL_SOLVER_NAMES = ("adam", "momentum", "sgd", "sgd_sched")
-PRIVATIZER_NAMES = ("distributed_gauss", "none", "server_gauss")
-UPDATE_SPACE_NAMES = ("full", "head_only", "lora")
-SCHEDULE_NAMES = ("constant", "warmup", "cosine")
-
-# per-name attributes the JAX registries carry and FedRoundSpec reads
-_MOMENTUM_DEFAULT_ALGORITHMS = ("scaffold_m", "fedavgm")
-_WHOLE_BATCH_ALGORITHMS = ("sgd",)
-_CLIPPING_PRIVATIZERS = ("server_gauss", "distributed_gauss")
-_RANKED_SPACES = ("lora",)
-_TARGETED_SPACES = ("head_only",)
-_SUBSET_SPACES = ("lora", "head_only")
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -136,20 +115,38 @@ class FedRoundSpec:
     use_megakernel: bool = False
 
     def __post_init__(self, compress_uplink):
-        assert self.algorithm in ALGORITHM_NAMES, (
-            self.algorithm, ALGORITHM_NAMES)
-        assert self.server_optimizer in ("",) + SERVER_OPTIMIZER_NAMES, (
-            self.server_optimizer, SERVER_OPTIMIZER_NAMES)
+        # lazy import: the registries live above configs in the layering
+        from repro_torch.core.api import (
+            algorithm_names,
+            get_algorithm,
+            server_optimizer_names,
+        )
+        from repro_torch.core.compression import compressor_names
+        from repro_torch.core.local_solver import local_solver_names
+        from repro_torch.core.privatizer import (
+            get_privatizer,
+            privatizer_names,
+        )
+        from repro_torch.core.update_space import (
+            get_update_space,
+            update_space_names,
+        )
+        from repro_torch.optim.schedules import schedule_names
+
+        assert self.algorithm in algorithm_names(), (
+            self.algorithm, algorithm_names())
+        assert self.server_optimizer in ("",) + server_optimizer_names(), (
+            self.server_optimizer, server_optimizer_names())
         if self.local_solver == "":
             object.__setattr__(self, "local_solver", "sgd")
-        assert self.local_solver in LOCAL_SOLVER_NAMES, (
-            self.local_solver, LOCAL_SOLVER_NAMES)
+        assert self.local_solver in local_solver_names(), (
+            self.local_solver, local_solver_names())
         assert 0.0 <= self.local_momentum < 1.0, self.local_momentum
         assert 0.0 <= self.local_beta2 < 1.0, self.local_beta2
         if self.local_solver == "sgd_sched":
-            assert self.eta_l_schedule in SCHEDULE_NAMES, (
+            assert self.eta_l_schedule in schedule_names(), (
                 f"local_solver='sgd_sched' needs eta_l_schedule in "
-                f"{SCHEDULE_NAMES}, got {self.eta_l_schedule!r}")
+                f"{schedule_names()}, got {self.eta_l_schedule!r}")
         else:
             assert self.eta_l_schedule == "", (
                 f"eta_l_schedule={self.eta_l_schedule!r} has no effect for "
@@ -160,19 +157,19 @@ class FedRoundSpec:
                         if isinstance(compress_uplink, bool) else False)
             object.__setattr__(
                 self, "compress", "int8_ef" if explicit else "none")
-        assert self.compress in COMPRESSOR_NAMES, (
-            self.compress, COMPRESSOR_NAMES)
-        assert self.compress_downlink in COMPRESSOR_NAMES, (
-            self.compress_downlink, COMPRESSOR_NAMES)
+        assert self.compress in compressor_names(), (
+            self.compress, compressor_names())
+        assert self.compress_downlink in compressor_names(), (
+            self.compress_downlink, compressor_names())
         assert self.compress_k >= 1, self.compress_k
         if isinstance(compress_uplink, bool):
             assert compress_uplink == (self.compress != "none"), (
                 f"compress_uplink={compress_uplink} contradicts "
                 f"compress={self.compress!r}; set compress "
                 f"('none' disables) instead of the back-compat flag")
-        assert self.privatizer in PRIVATIZER_NAMES, (
-            self.privatizer, PRIVATIZER_NAMES)
-        if self.privatizer in _CLIPPING_PRIVATIZERS:
+        assert self.privatizer in privatizer_names(), (
+            self.privatizer, privatizer_names())
+        if get_privatizer(self.privatizer).clips:
             assert self.clip_norm > 0.0, (
                 f"privatizer={self.privatizer!r} needs clip_norm > 0 "
                 f"(the L2 sensitivity bound), got {self.clip_norm}")
@@ -194,9 +191,10 @@ class FedRoundSpec:
                 f"for privatizer={self.privatizer!r}")
         if self.update_space == "":
             object.__setattr__(self, "update_space", "full")
-        assert self.update_space in UPDATE_SPACE_NAMES, (
-            self.update_space, UPDATE_SPACE_NAMES)
-        if self.update_space in _RANKED_SPACES:
+        assert self.update_space in update_space_names(), (
+            self.update_space, update_space_names())
+        space = get_update_space(self.update_space)
+        if space.uses_rank:
             assert self.lora_rank >= 1, (
                 f"update_space={self.update_space!r} needs lora_rank >= 1, "
                 f"got {self.lora_rank}")
@@ -208,18 +206,19 @@ class FedRoundSpec:
             assert self.lora_alpha == 0.0, (
                 f"lora_alpha={self.lora_alpha} has no effect for "
                 f"update_space={self.update_space!r}")
-        if self.update_space in _TARGETED_SPACES:
+        if space.requires_targets:
             assert self.update_targets != "", (
                 f"update_space={self.update_space!r} needs update_targets "
                 f"(an empty selection trains nothing)")
-        if self.update_space not in _SUBSET_SPACES:
+        if not space.trains_subset:
             assert self.update_targets == "", (
                 f"update_targets={self.update_targets!r} has no effect for "
                 f"update_space={self.update_space!r}")
+        algo = get_algorithm(self.algorithm)
         if (self.server_optimizer == "" and self.server_momentum == 0.0
-                and self.algorithm in _MOMENTUM_DEFAULT_ALGORITHMS):
+                and algo.default_server_optimizer == "momentum"):
             object.__setattr__(self, "server_momentum", 0.9)
-        if self.algorithm in _WHOLE_BATCH_ALGORITHMS:
+        if algo.whole_batch:
             assert not self.weighted_aggregation, (
                 f"weighted_aggregation has no effect for whole-batch "
                 f"{self.algorithm!r}")

@@ -12,7 +12,14 @@ loop, with the same host RNG streams (``ClientSampler(seed)``, data from
 ``np.random.default_rng(seed + 1)``), so both packages draw the same
 cohorts and batches. The keyed compression and privacy draws come from
 ``core.streams`` at the reference's fold paths (``seed + 2`` and
-``seed + 3``, keyed by the round index).
+``seed + 3``, keyed by the round index), the LoRA init from
+``seed + 4``.
+
+Under an update space that trains a subset (``spec.update_space``,
+``core/update_space.py``) the trainer freezes the initial parameters as
+``base_params``, ``server.x`` becomes the delta tree, and the grad fn
+differentiates in delta space; every store, residual and slot row and
+the byte counts then follow the deltas. ``eval_params()`` merges them.
 
 The pipelined, scanned, tiered and async modes are not ported yet and
 raise ``NotImplementedError``.
@@ -37,22 +44,59 @@ from repro_torch.core.local_solver import (
     megakernel_incompatibility,
     resolve_local_solver,
 )
-from repro_torch.core.rounds import check_ported, run_round
+from repro_torch.core.rounds import run_round
 from repro_torch.core.sampling import ClientSampler
 from repro_torch.core.store import ClientStateStore
-from repro_torch.core.streams import round_key
+from repro_torch.core.streams import (
+    base_from_state,
+    key_state,
+    round_key,
+    stream_key,
+)
 from repro_torch.core.tree import tree_flatten_slots
+from repro_torch.core.update_space import (
+    get_update_space,
+    resolve_update_space,
+)
 from repro_torch.device import resolve_device
 
 
-def make_grad_fn(loss_fn: Callable) -> Callable:
+def make_grad_fn(loss_fn: Callable, *, space=None, spec=None,
+                 base_params=None) -> Callable:
     """``loss_fn(params, batch) -> (scalar, metrics)``  =>
     ``grad_fn(params, batch) -> (grads, metrics)`` by autograd.
 
     The gradient is taken at detached copies of the leaves, so ``params``
     (a client's working copy) can be updated in place afterwards. The
     loss's ``megakernel_grad`` marker is propagated, so
-    ``megakernel_incompatibility`` gates on the grad fn it receives."""
+    ``megakernel_incompatibility`` gates on the grad fn it receives.
+
+    With a ``space`` that trains a subset, ``grad_fn(deltas, batch)``
+    evaluates the loss at ``space.apply(spec, base_params, deltas)``,
+    differentiates only the leaves of ``space.grad_keys`` and pulls them
+    back through ``space.grad_project``: the exact chain rule. The
+    megakernel marker is dropped there (the delta-space gradient is not
+    the loss's closed form)."""
+
+    if space is not None and space.trains_subset:
+
+        def subset_grad_fn(deltas, batch):
+            with torch.no_grad():
+                full = space.apply(spec, base_params, deltas)
+            keys = space.grad_keys(spec, base_params, deltas)
+            with torch.enable_grad():
+                leaves = {k: full[k].detach().requires_grad_(True)
+                          for k in keys}
+                loss, metrics = loss_fn({**full, **leaves}, batch)
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+            del full
+            with torch.no_grad():
+                out = space.grad_project(spec, base_params, deltas,
+                                         dict(zip(keys, grads)))
+            return out, {k: v.detach() for k, v in metrics.items()}
+
+        subset_grad_fn.megakernel_grad = None
+        return subset_grad_fn
 
     def grad_fn(params, batch):
         with torch.enable_grad():
@@ -96,7 +140,6 @@ class FederatedTrainer:
             pending.append("async engine (async_buffer)")
         if pending:
             raise NotImplementedError(", ".join(pending) + ": not ported yet")
-        check_ported(spec)
         self.spec = spec
         self.dataset = dataset
         self.algorithm = get_algorithm(spec.algorithm)
@@ -106,6 +149,14 @@ class FederatedTrainer:
                 "client_sizes(ids); add it or disable weighting")
         gen = torch.Generator(device=self.device).manual_seed(seed)
         x = {k: v.to(self.device) for k, v in init_params(gen).items()}
+        # a space that trains a subset freezes the initial parameters and
+        # trains its delta tree, drawn from the fifth keyed stream
+        self.update_space = get_update_space(resolve_update_space(spec))
+        self.base_params = None
+        if self.update_space.trains_subset:
+            self.base_params = x
+            x = self.update_space.init_deltas(
+                spec, x, stream_key(seed + 4, self.device))
         self.server = init_server_state(spec, x)
         self.store = ClientStateStore(self.server.x, spec.num_clients,
                                       backend=store_backend)
@@ -139,7 +190,9 @@ class FederatedTrainer:
             k: float(v) for k, v in round_comm_bytes(
                 spec, self.server.x,
                 stateful_clients=self.algorithm.stateful_clients).items()}
-        self._grad_fn = grad_fn = make_grad_fn(loss_fn)
+        self._grad_fn = grad_fn = make_grad_fn(
+            loss_fn, space=self.update_space, spec=spec,
+            base_params=self.base_params)
         self._use_fused_update = use_fused_update
         # megakernel capability gate, decided once from static config: ""
         # when every local loop takes the K-step kernel, a reason string
@@ -180,8 +233,33 @@ class FederatedTrainer:
         self.server = dataclasses.replace(self.server, c=value)
 
     def eval_params(self):
-        """The full parameter dict for evaluation (``server.x``)."""
-        return self.server.x
+        """The full parameter dict for evaluation: ``server.x`` in the
+        ``full`` space (the same tensors), else the frozen base with the
+        trained deltas merged in (``update_space.apply``)."""
+        if self.base_params is None:
+            return self.server.x
+        with torch.no_grad():
+            return self.update_space.apply(self.spec, self.base_params,
+                                           self.server.x)
+
+    # -- the host RNG state a checkpoint carries ---------------------------
+
+    def host_rng_state(self) -> Dict[str, Any]:
+        """The sampler's and the data stream's numpy states, and the
+        keyed streams' root keys (stateless in the round index, so their
+        seeds are all they need), under the reference's keys."""
+        return {"sampler": self.sampler.get_state(),
+                "data_rng": self._rng.bit_generator.state,
+                "comp_key": key_state(self._comp_seed),
+                "priv_key": key_state(self._priv_seed)}
+
+    def set_host_rng_state(self, state: Dict[str, Any]) -> None:
+        self.sampler.set_state(state["sampler"])
+        self._rng.bit_generator.state = state["data_rng"]
+        if "comp_key" in state:
+            self._comp_seed = base_from_state(state["comp_key"])
+        if "priv_key" in state:
+            self._priv_seed = base_from_state(state["priv_key"])
 
     # -- the synchronous round loop ----------------------------------------
 
@@ -223,6 +301,8 @@ class FederatedTrainer:
         m.update(self._comm_bytes)
         if self.megakernel_fallback_reason is not None:
             m["megakernel_fallback_reason"] = self.megakernel_fallback_reason
+        if self.update_space.trains_subset:
+            m["update_space"] = self.update_space.name
         m["round"] = self.round_idx
         self.history.append(m)
         return m

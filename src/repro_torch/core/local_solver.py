@@ -23,7 +23,8 @@ over explicit slots,
 
 ``run_local_steps`` runs the K steps; with ``spec.use_megakernel`` and a
 combination the K-step kernel can express (``megakernel_incompatibility``)
-all K steps are one launch (B3, or B4 for ``momentum``).
+all K steps are one launch (B3, or B4 for ``momentum``). ``local_sgd``
+is the reference's seed surface over it (the ``sgd`` solver).
 
 Slots are nested dicts over the port's flat trees (``{"m": tree}``,
 ``{"m": tree, "v": tree, "t": 0-d int32}``); the round engine and the
@@ -35,6 +36,7 @@ client and slot instead of one per step).
 """
 from __future__ import annotations
 
+import types
 from typing import Any, Callable, Dict, Tuple
 
 import torch
@@ -337,3 +339,17 @@ def run_local_steps(
         del grads
         losses.append(metrics["loss"])
     return y, slots, torch.stack(losses).mean()
+
+
+def local_sgd(grad_fn: Callable, y0, batches, eta_l: float, *,
+              correction=None, prox_mu: float = 0.0, prox_center=None,
+              use_fused_update: bool = False) -> Tuple[Any, torch.Tensor]:
+    """The reference's back-compat seed surface: K plain corrected SGD
+    steps, :func:`run_local_steps` with the ``sgd`` solver; returns
+    ``(y_K, mean local loss)``."""
+    y, _, loss = run_local_steps(
+        grad_fn, types.SimpleNamespace(eta_l=eta_l), y0, batches,
+        solver=get_local_solver("sgd"), correction=correction,
+        prox_mu=prox_mu, prox_center=prox_center,
+        use_fused_update=use_fused_update)
+    return y, loss

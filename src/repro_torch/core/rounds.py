@@ -23,8 +23,12 @@ to its exact x. Per client: clip dy (``spec.privatizer``), add the
 client's noise, then round-trip dy through the uplink codec with the
 client's error-feedback residual. Server noise lands on the mean before
 the server optimizer. The control stream dc is never compressed or
-noised. Non-``full`` update spaces are not ported yet: a spec that asks
-for one raises ``NotImplementedError``.
+noised. The round is generic over ``server.x``: under an update space
+that trains a subset (``core/update_space.py``) it is the delta tree,
+and every state and byte count follows it.
+
+``federated_round`` is the reference's tuple-returning shim over
+``run_round`` (its seed signature).
 """
 from __future__ import annotations
 
@@ -58,18 +62,6 @@ from repro_torch.core.tree import (
 # fp32 temporaries of the accumulations are made this many elements at a
 # time, so a bf16 leaf never needs a whole fp32 copy beside it
 _CHUNK = 1 << 26
-
-
-def check_ported(spec) -> None:
-    """Raise ``NotImplementedError`` for a non-``full`` update space (not
-    ported yet; the JAX package supports it), ``KeyError`` for a name no
-    registry knows."""
-    if spec.update_space != "full":
-        raise NotImplementedError(
-            f"update space {spec.update_space!r}: not ported yet")
-    get_algorithm(spec.algorithm)
-    get_local_solver(resolve_local_solver(spec))
-    get_server_optimizer(resolve_server_optimizer(spec))
 
 
 def _merge_step_batches(batches):
@@ -185,7 +177,6 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
     ``dp_epsilon`` (the float64 accountant after ``dp_round + 1``
     rounds) and ``dp_clipped_frac`` (a 0-d tensor).
     """
-    check_ported(spec)
     algo = get_algorithm(spec.algorithm)
     if algo.whole_batch:
         return _whole_batch_round(grad_fn, spec, server, clients, batches)
@@ -318,3 +309,47 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
                                  weights=weights, solver_slots=slots_all),
         metrics=metrics,
     )
+
+
+def federated_round(grad_fn, spec, x, c, c_i, batches, momentum=None,
+                    weights=None, uplink_res=None,
+                    use_fused_update: bool = False, comp_key=None):
+    """The reference's back-compat shim over :func:`run_round` (its seed
+    signature; the port has no ``shard_fn``).
+
+    x, c: the server model and control variate; c_i: the sampled clients'
+    control variates, leaves (S, ...), written over in place as
+    ``run_round`` writes its rows; batches: leaves (S, K, b, ...).
+    ``momentum`` is the server heavy-ball slot, required when the spec
+    resolves to the momentum server optimizer; ``uplink_res`` the
+    codec's residual rows. Returns ``(x, c, c_i, [momentum],
+    [uplink_res], metrics)``, the bracketed entries when they apply
+    (never for a whole-batch algorithm).
+    """
+    opt_name = resolve_server_optimizer(spec)
+    assert opt_name in ("sgd", "momentum"), (
+        f"the tuple-shim only carries sgd/momentum server state; use "
+        f"run_round + ServerState for {opt_name!r}")
+    solver_name = resolve_local_solver(spec)
+    assert not get_local_solver(solver_name).stateful, (
+        f"the tuple-shim cannot carry the per-client slots of stateful "
+        f"local solver {solver_name!r} (they would silently reset every "
+        f"call); use run_round + ClientRoundState.solver_slots")
+    whole_batch = get_algorithm(spec.algorithm).whole_batch
+    if opt_name == "momentum" and not whole_batch:
+        assert momentum is not None, "pass momentum state for server_momentum"
+    opt_state = {"m": momentum} if momentum is not None else {}
+    out = run_round(
+        grad_fn, spec, ServerState(x=x, c=c, opt_state=opt_state),
+        ClientRoundState(c_i=c_i, uplink_residual=uplink_res,
+                         weights=weights),
+        batches, use_fused_update=use_fused_update, comp_key=comp_key)
+    if whole_batch:
+        return out.server.x, out.server.c, out.clients.c_i, out.metrics
+    outs = [out.server.x, out.server.c, out.clients.c_i]
+    if opt_name == "momentum":
+        outs.append(out.server.opt_state["m"])
+    if spec.compress_uplink:
+        outs.append(out.clients.uplink_residual)
+    outs.append(out.metrics)
+    return tuple(outs)

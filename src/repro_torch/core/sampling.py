@@ -2,9 +2,12 @@
 
 A copy of the JAX package's host sampler (``core/sampling.py``): numpy
 ``Generator.choice`` from the trainer's seed, so both packages draw the
-same cohorts. The scanned engine's device sampler is not ported yet.
+same cohorts, and its state rides in a checkpoint as the reference's
+does. The scanned engine's device sampler is not ported yet.
 """
 from __future__ import annotations
+
+from typing import Any, Dict
 
 import numpy as np
 
@@ -20,3 +23,11 @@ class ClientSampler:
     def sample(self) -> np.ndarray:
         return self._rng.choice(self.num_clients, size=self.num_sampled,
                                 replace=False)
+
+    # the numpy bit-generator state, JSON-serializable, for an exact
+    # resume of the sampling trajectory (checkpoint/checkpoint.py)
+    def get_state(self) -> Dict[str, Any]:
+        return self._rng.bit_generator.state
+
+    def set_state(self, state: Dict[str, Any]) -> None:
+        self._rng.bit_generator.state = state

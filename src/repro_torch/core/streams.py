@@ -1,16 +1,18 @@
-"""Keyed, stateless random draws: the port's compression and privacy
-streams.
+"""Keyed, stateless random draws: the port's compression, privacy and
+LoRA-init streams.
 
 The JAX package folds threefry keys: compression draws from
 ``key(seed + 2)``, privacy from ``key(seed + 3)``, each folded by the
 round ``t``, then by ``0`` (a client) or ``1`` (the downlink broadcast,
-the server), then by the client ``i``, then by the leaf ``j``. Torch
-cannot replay threefry, so the port keeps the same fold paths and
-derives each draw's ``torch.Generator`` seed from
+the server), then by the client ``i``, then by the leaf ``j``; the LoRA
+init draws target ``i``'s factor A from ``key(seed + 4)`` folded by
+``i``. Torch cannot replay threefry, so the port keeps the same fold
+paths and derives each draw's ``torch.Generator`` seed from
 ``np.random.SeedSequence(path)``, on the key's device:
 
   a client's draw   (base, t, 0, i, j)
   a broadcast/server draw (base, t, 1, j)
+  a LoRA factor A   (base, i)
 
 The draws are a pure function of the path, so they stay stateless in
 the round index, as the reference's are. Every draw goes through
@@ -53,6 +55,32 @@ class StreamKey:
 def round_key(base: int, t: int, device) -> StreamKey:
     """The key of round ``t`` of the stream seeded ``base``."""
     return StreamKey((base, t), device)
+
+
+def stream_key(base: int, device) -> StreamKey:
+    """The root key of the stream seeded ``base`` (folded per draw, as
+    the LoRA init folds it by the target)."""
+    return StreamKey((base,), device)
+
+
+# the reference's PRNG implementation, as its checkpoints name it
+_KEY_IMPL = "threefry2x32"
+
+
+def key_state(base: int):
+    """The JSON form of the root key seeded ``base`` as the reference's
+    checkpoints write it (``{"impl", "key_data"}``), so a checkpoint
+    crosses packages."""
+    return {"impl": _KEY_IMPL, "key_data": [base >> 32, base & 0xFFFFFFFF]}
+
+
+def base_from_state(state) -> int:
+    """The seed of a root key from :func:`key_state`'s form."""
+    if state["impl"] != _KEY_IMPL:
+        raise ValueError(f"key impl {state['impl']!r}: only {_KEY_IMPL!r} "
+                         f"keys are seeded by an integer")
+    hi, lo = state["key_data"]
+    return (int(hi) << 32) | int(lo)
 
 
 def permutation(key: StreamKey, n: int) -> torch.Tensor:

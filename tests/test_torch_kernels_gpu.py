@@ -12,7 +12,9 @@ the plain versions do); the K-step loops (B3, B4) in fp32 to rtol 1e-5
 two launches bitwise equal; sliding-window attention (B5) in fp32 to 2e-5
 absolute, in bf16 to 1 bf16 ulp of the plain element plus 2e-5 (both
 round an fp32 result once; the fp32 results differ by the order of their
-sums, which exceeds an ulp only below 2^-8).
+sums, which exceeds an ulp only below 2^-8). B1 and B2 also run on a
+LoRA delta tree as the trainer stacks it, and a bf16 checkpoint
+round-trips on the card bitwise.
 """
 import math
 import sys
@@ -625,3 +627,64 @@ def test_launch_floor_runs_on_every_table():
         for momentum in (False, True):
             ops.launch_floor(plan, momentum=momentum)
     torch.cuda.synchronize()
+
+
+def _lora_tree(gen, layers=3, dims=((256, 256), (256, 64), (256, 64),
+                                    (256, 256), (256, 512), (256, 512),
+                                    (512, 256)), rank=8):
+    """A LoRA delta tree as the trainer stacks it: 7 targets x A/B, A
+    (layers, in, r) and B (layers, r, out), fp32."""
+    names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    tree = {}
+    for name, (d_in, d_out) in zip(names, dims):
+        path = f"layers.0.{'mlp' if name.startswith('w_') else 'attn'}.{name}"
+        tree[f"{path}/A"] = torch.randn(layers, d_in, rank, generator=gen,
+                                        device="cuda")
+        tree[f"{path}/B"] = torch.randn(layers, rank, d_out, generator=gen,
+                                        device="cuda")
+    return tree
+
+
+@pytest.mark.parametrize("slot", [False, True], ids=["B1", "B2"])
+def test_b1_b2_on_a_lora_delta_tree(slot):
+    """One launch for the 14 stacked factors, within the ulp bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    y, g, c = (_lora_tree(gen) for _ in range(3))
+    m = ({k: torch.randn(v.shape, generator=gen, device="cuda")
+          for k, v in y.items()} if slot else None)
+    name = "scaffold_momentum_update" if slot else "scaffold_update"
+    before = ops.LAUNCHES[name]
+    if slot:
+        oy, om = ops.scaffold_momentum_update_packed(y, g, c, m, 0.01, 0.9)
+    else:
+        oy = ops.scaffold_update_packed(y, g, c, 0.01)
+    assert ops.LAUNCHES[name] == before + 1
+    for k in y:
+        if slot:
+            py, pm = ref.scaffold_momentum_update_ref(y[k], g[k], c[k], m[k],
+                                                      0.01, 0.9)
+            assert ulp_distance(om[k], pm) == 0, k
+        else:
+            py = ref.scaffold_update_ref(y[k], g[k], c[k], 0.01)
+        assert ulp_distance(oy[k], py) <= 1, k
+
+
+def test_bf16_checkpoint_round_trips_on_the_card(tmp_path):
+    """bf16 leaves on the card are written as raw 2-byte words and read
+    back bitwise, onto the card."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    tree = {"x": {"embed": torch.randn(64, 32, generator=gen,
+                                       device="cuda").bfloat16(),
+                  "layers.0.attn.wq/A": torch.randn(2, 32, 4, generator=gen,
+                                                    device="cuda")},
+            "t": torch.tensor(3, dtype=torch.int32, device="cuda")}
+    save_checkpoint(str(tmp_path / "ck"), tree, extra={"round": 2})
+    back, extra = load_checkpoint(str(tmp_path / "ck"), tree)
+    assert extra == {"round": 2}
+    for k in ("embed", "layers.0.attn.wq/A"):
+        a, b = back["x"][k], tree["x"][k]
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), k
+    assert int(back["t"]) == 3

@@ -1,8 +1,8 @@
 """The port's package rules.
 
   * No file of ``src/repro_torch`` and neither ``chip_smoke.py`` imports
-    JAX or anything of the JAX package ``repro`` (an AST walk), and
-    importing the port leaves both out of ``sys.modules``.
+    JAX, ``ml_dtypes`` or anything of the JAX package ``repro`` (an AST
+    walk), and importing the port leaves them out of ``sys.modules``.
   * Entry points default to the card and raise where there is none: no
     silent fallback to the CPU.
   * The copied configs mean the same as the JAX package's.
@@ -27,7 +27,9 @@ from repro_torch.configs.base import FedRoundSpec as TSpec
 from repro_torch.configs.base import ModelConfig as TModelConfig
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+# ml_dtypes too: the card's machine has none (a bf16 checkpoint leaf is
+# read from its raw 2-byte words instead)
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "local_loop_probe.py",
     ROOT / "tools" / "heavy_ball_kink_probe.py",

@@ -193,8 +193,12 @@ def test_lm_megakernel_falls_back_loudly(lm_weights):
     dict(trainer={"scan_rounds": 4}),
     dict(trainer={"store": "tiered"}),
     dict(trainer={"async_buffer": 2}),
-    dict(spec={"update_space": "head_only", "update_targets": "x"}),
-    dict(spec={"update_space": "lora", "lora_rank": 2}),
+    # the update spaces are ported (tests/test_torch_update_space.py):
+    # a space under an engine the port has not yet is refused by the
+    # engine; the sharded store backend is not ported
+    dict(trainer={"store_backend": "sharded"}),
+    dict(spec={"update_space": "head_only", "update_targets": "x"},
+         trainer={"pipeline_depth": 1}),
     dict(trainer={"store_backend": "memmap"}),
 ])
 def test_not_ported_modes_raise(change):
