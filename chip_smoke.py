@@ -49,9 +49,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      adam, fedprox and the head_only update space fall back to the
      per-step path by the reference's reasons (no B3/B4 launch)
   16. the paper's Table 5 (EMNIST-like, the 784-256-62 MLP, N 50, S 10,
-     K 25, 150 rounds, similarity 0 and 10): SGD, FedAvg and SCAFFOLD,
-     SCAFFOLD's local steps through B1; best test accuracy, seconds a
-     round, B1's launches, a profiled round; B1 timed at the MLP tree
+     K 25, similarity 0 and 10), its first 30 rounds through the sync
+     host loop: SGD, FedAvg and SCAFFOLD, SCAFFOLD's local steps through
+     B1; best test accuracy, seconds a round, B1's launches, a profiled
+     round; B1 timed at the MLP tree
      (card time beside its empty launch, the plain version and
      ``torch._foreach_add_``; the wrapper's host time a call) and at the
      1024 leaf
@@ -78,10 +79,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
      entry point: B1 on the bf16 2-leaf group (timed), the bytes
   21. the update spaces card against CPU at reduced depth: lora,
      head_only, and lora with local heavy-ball (B2 on the delta tree)
+  22. the paper's Figure 3 through the scanned engine, at
+     ``benchmarks/fig3_quadratics.py``'s settings (G 1, 10, 100; sgd K 1,
+     fedavg and scaffold K 2 and 10; N = S = 2; 60 rounds as one chunk),
+     each round a replay of the round's captured CUDA graph; SCAFFOLD
+     through B1 and once more through B3, launches counted through the
+     replays; the suboptimality table
+  23. the paper's Table 5 through the scanned engine, uncut: 150 rounds
+     in chunks of 5, accuracy every 5 rounds, B1 150 x S x K times a
+     SCAFFOLD row; s/round against phase 16's, the card-busy share of a
+     replay; a checkpoint mid-chunk resumed bitwise
+  24. B3, B4 (quadratics, d 1024) and B2 (EMNIST heavy-ball) inside
+     captured rounds, each trainer bitwise the eager host loop on the
+     same device streams
+  25. gemma3-1b at its published widths cut to 2 "W" layers, seq 2048,
+     ``--scan-rounds 2`` through ``repro_torch.launch.train.main``: B5
+     inside the captured round, held to the host loop within 1e-4
 
 Each main path runs with every launch count set to 0 just before it and
-read just after. B1's and B2's ``launches`` in the kernels line sum every
-path that runs them (``launches_by_path``).
+read just after; a launch inside a captured CUDA graph counts at each
+replay. Every kernel's ``launches`` in the kernels line sums the paths
+that run it (``launches_by_path``), the scanned ones included.
 
 It prints the ``kernels`` JSON line, the card's name and power limit, and
 last the ``{"ok": true, "device": ...}`` line. It imports nothing of JAX
@@ -1968,7 +1986,7 @@ def phase_quadratics(ds, result):
         f"{err:.2e} (bound 1e-4)")
     if not err <= 1e-4:
         raise AssertionError(f"quad final x rel err {err}")
-    result["b3_launches"] = counts["megakernel"][0]
+    result.setdefault("b3_paths", {})["quadratics"] = counts["megakernel"][0]
     result.setdefault("b1_paths", {})["quadratics per-step"] = counts[
         "per_step_fused"][1]
     result["b3"] = _time_local_loop(ds)
@@ -1993,7 +2011,8 @@ def phase_quad_heavy_ball(ds, result):
         f"{err:.2e} (bound 1e-4)")
     if not err <= 1e-4:
         raise AssertionError(f"quad heavy-ball final x rel err {err}")
-    result["b4_launches"] = counts["heavy-ball megakernel"][0]
+    result.setdefault("b4_paths", {})["quadratics heavy-ball"] = counts[
+        "heavy-ball megakernel"][0]
     result.setdefault("b2_paths", {})["quadratics per-step"] = counts[
         "heavy-ball per_step_fused"][1]
     result["b4"] = _time_local_loop(ds, beta=spec.local_momentum)
@@ -2013,11 +2032,13 @@ def phase_quad_sched_adam(ds, result):
     spec = FedRoundSpec(algorithm="scaffold", num_clients=20, num_sampled=4,
                         local_steps=10, local_batch=1, eta_l=0.1,
                         use_megakernel=True)
-    _quad_paths(ds, spec, (
+    _, counts = _quad_paths(ds, spec, (
         ("sgd_sched cosine, server adam", dict(
             local_solver="sgd_sched", eta_l_schedule="cosine",
             server_optimizer="adam", eta_g=0.1), (12,)),),
         ("scaffold_local_loop",))
+    result.setdefault("b3_paths", {})["quadratics sgd_sched"] = counts[
+        "sgd_sched cosine, server adam"][0]
     grad_reason = ("grad not kernel-expressible (loss_fn lacks "
                    "megakernel_grad='quadratic')")
     for name, changes, want, per_step in (
@@ -2058,18 +2079,21 @@ def phase_quad_sched_adam(ds, result):
 
 # the paper's Table 5 at benchmarks/table5_nn.py's full settings: the
 # 784-256-62 MLP, N 50 of 20,000 samples, S 10, K 25, eta_l 0.3, batch
-# 0.2 of a shard, 150 rounds, test accuracy every 10 rounds
+# 0.2 of a shard, 150 rounds; the scanned engine (phase 23) runs all 150
+# in chunks of 5, test accuracy every 5 rounds; the sync host loop (phase
+# 16) the first 30, test accuracy every 10
 EMNIST = dict(num_clients=50, samples=20_000, seed=0)
-EMNIST_ROUNDS, EMNIST_EVAL_EVERY = 150, 10
+EMNIST_ROUNDS, EMNIST_SCAN_CHUNK = 150, 5
+EMNIST_SYNC_ROUNDS, EMNIST_EVAL_EVERY = 30, 10
 EMNIST_SPEC = dict(num_clients=50, num_sampled=10, local_steps=25, eta_l=0.3)
 # the MLP's leaves: w1 784x256, b1 256, w2 256x62, b2 62
 MLP_PARAMS = 784 * 256 + 256 + 256 * 62 + 62
 
 
-def _mlp_trainer(spec, data, device="cuda", init=None, fused=True):
+def _mlp_trainer(spec, data, device="cuda", init=None, fused=True, **kw):
     """A trainer of the EMNIST MLP, its weights from a seed-0 generator
     (or ``init``, a tree copied to ``device``); ``fused`` False runs the
-    plain update in place of B1/B2."""
+    plain update in place of B1/B2; ``kw`` the trainer's engine flags."""
     import torch
 
     from repro_torch.core import FederatedTrainer
@@ -2081,7 +2105,7 @@ def _mlp_trainer(spec, data, device="cuda", init=None, fused=True):
         return simple.mlp_init(gen, 784, 62, device=gen.device)
 
     return FederatedTrainer(simple.mlp_loss, init_params, spec, data, seed=0,
-                            use_fused_update=fused, device=device)
+                            use_fused_update=fused, device=device, **kw)
 
 
 def _time_small_trees(fns, host_call, quad_call):
@@ -2231,13 +2255,14 @@ def _time_b2_mlp(tr, spec, result):
 
 
 def phase_emnist_table5(result):
-    """Phase 16: the paper's Table 5 on the card. SGD (whole batch, K 1),
-    FedAvg and SCAFFOLD through the sync host loop at similarity 0 and
-    10; every SCAFFOLD local step through B1 (FedAvg and SGD have no
-    correction, so no fused step). Fails on a non-finite loss, on B1
-    launches other than rounds x S x K for SCAFFOLD and 0 otherwise, and
-    on a best accuracy of FedAvg or SCAFFOLD at or under 0.10 (chance is
-    1/62)."""
+    """Phase 16: the paper's Table 5 on the card, its first 30 rounds
+    through the sync host loop (phase 23 runs all 150 scanned). SGD
+    (whole batch, K 1), FedAvg and SCAFFOLD at similarity 0 and 10; every
+    SCAFFOLD local step through B1 (FedAvg and SGD have no correction, so
+    no fused step). Fails on a non-finite loss, on B1 launches other than
+    rounds x S x K for SCAFFOLD and 0 otherwise, and on a best accuracy of
+    FedAvg or SCAFFOLD at or under 0.10 (chance is 1/62). Keeps each
+    row's median s/round for phase 23."""
     import torch
 
     from repro_torch.configs.base import FedRoundSpec
@@ -2260,7 +2285,7 @@ def phase_emnist_table5(result):
             tr = _mlp_trainer(spec, data)
             reset_launches()
             secs, accs = [], []
-            for r in range(EMNIST_ROUNDS):
+            for r in range(EMNIST_SYNC_ROUNDS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 m = tr.run_round()
@@ -2274,7 +2299,8 @@ def phase_emnist_table5(result):
             counts = launches()
             want = {k: 0 for k in counts}
             if algo == "scaffold":
-                want["scaffold_update"] = (EMNIST_ROUNDS * spec.num_sampled
+                want["scaffold_update"] = (EMNIST_SYNC_ROUNDS
+                                           * spec.num_sampled
                                            * spec.local_steps)
                 paths = result.setdefault("b1_paths", {})
                 paths["emnist table 5"] = (paths.get("emnist table 5", 0)
@@ -2285,8 +2311,10 @@ def phase_emnist_table5(result):
                 f"accuracy {best:.4f} (every {EMNIST_EVAL_EVERY} rounds: "
                 + ", ".join(f"{a:.3f}" for a in accs)
                 + f"); final loss {m['loss']:.4f}; s/round median of rounds "
-                f"2-{EMNIST_ROUNDS} {statistics.median(secs[1:]):.4f} "
+                f"2-{EMNIST_SYNC_ROUNDS} {statistics.median(secs[1:]):.4f} "
                 f"(round 1 {secs[0]:.3f}); launches {counts}")
+            result.setdefault("table5_sync_s", {})[(algo, sim)] = (
+                statistics.median(secs[1:]))
             if counts != want:
                 raise AssertionError(f"emnist {algo}: launches {counts} != "
                                      f"{want}")
@@ -2307,7 +2335,8 @@ def phase_emnist_table5(result):
                        key=lambda a: -best_all[(a, sim)])
         log(f"emnist table 5, sim {sim:g}%: best accuracy order "
             + " > ".join(f"{a} {best_all[(a, sim)]:.4f}" for a in order)
-            + " (the paper's: scaffold > fedavg > sgd; not asserted)")
+            + f" after {EMNIST_SYNC_ROUNDS} rounds (the paper's: scaffold "
+            f"> fedavg > sgd; not asserted)")
     torch.cuda.empty_cache()
 
 
@@ -2536,6 +2565,534 @@ def phase_emnist_codecs(result):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the scanned engine: each round one replay of a captured CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def host_loop_device_rng(spec, ds, rounds, loss_fn, init_params, *,
+                         fused=True, device="cuda", seed=0):
+    """``rounds`` calls of ``run_round`` on ``device``, eagerly, on the
+    scanned engine's streams (cohorts at path (seed, t), data at (seed +
+    1, t) through the dataset's ``device_batch_fn``, the keyed streams at
+    seed + 2 and seed + 3), every row family gathered from and scattered
+    to host stores: the per-round host loop a scanned trainer is held to.
+    The weights are ``init_params`` of a generator seeded ``seed`` on
+    ``device``, as the trainer makes them. Returns ``(server, {family:
+    (N, ...) rows}, history)``."""
+    import torch
+
+    from repro_torch.core import (
+        ClientRoundState,
+        ClientStateStore,
+        device_sample_ids,
+        get_compressor,
+        get_local_solver,
+        init_server_state,
+        make_grad_fn,
+        resolve_local_solver,
+        run_round,
+    )
+    from repro_torch.core.streams import round_key, stream_key
+    from repro_torch.core.tree import tree_flatten_slots
+
+    dev = torch.device(device)
+    grad_fn = make_grad_fn(loss_fn)
+    data = ds.device_data(device=dev)
+    batch_fn = ds.device_batch_fn(spec.local_steps, spec.local_batch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = {k: v.to(dev) for k, v in init_params(gen).items()}
+    server = init_server_state(spec, params)
+    stores = {"c_i": ClientStateStore(params, spec.num_clients)}
+    if get_compressor(spec.compress).stateful:
+        stores["residual"] = ClientStateStore(
+            {k: v.float() for k, v in params.items()}, spec.num_clients)
+    solver = get_local_solver(resolve_local_solver(spec))
+    if solver.stateful:
+        stores["solver"] = ClientStateStore(
+            tree_flatten_slots(solver.init(spec, params)), spec.num_clients)
+    sizes = (ds.device_client_sizes(device=dev)
+             if spec.weighted_aggregation else None)
+    skey, dkey = stream_key(seed, dev), stream_key(seed + 1, dev)
+    hist = []
+    for t in range(rounds):
+        ids = device_sample_ids(skey, t, spec.num_clients, spec.num_sampled)
+        batches = batch_fn(data, ids, dkey.fold_in(t))
+        rows = {name: st.gather(ids) for name, st in stores.items()}
+        out = run_round(grad_fn, spec, server, ClientRoundState(
+            c_i=rows["c_i"], uplink_residual=rows.get("residual"),
+            solver_slots=rows.get("solver"),
+            weights=None if sizes is None else sizes[ids]), batches,
+            use_fused_update=fused, comp_key=round_key(seed + 2, t, dev),
+            priv_key=round_key(seed + 3, t, dev), dp_round=t)
+        server = out.server
+        new = {"c_i": out.clients.c_i,
+               "residual": out.clients.uplink_residual,
+               "solver": out.clients.solver_slots}
+        for name, st in stores.items():
+            st.scatter(ids, new[name])
+        hist.append({k: float(v) for k, v in out.metrics.items()})
+    return server, {name: st.rows for name, st in stores.items()}, hist
+
+
+def _flat(tree, prefix=""):
+    """Nested dicts of tensors -> ``{"a/b": tensor}``."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def scanned_vs_host_loop(tr, server, rows) -> dict:
+    """Leaves of a scanned trainer's state (x, c, optimizer slots, every
+    store row family) against the host loop's: ``{"leaves", "apart",
+    "max_abs", "max_rel"}``, ``apart`` counting leaves not bitwise equal,
+    ``max_rel`` the largest |diff| over its leaf's largest magnitude."""
+    import torch
+
+    got = _flat({"x": tr.x, "c": tr.c, "opt": tr.server.opt_state,
+                 "store": tr._device_families()})
+    want = _flat({"x": server.x, "c": server.c, "opt": server.opt_state,
+                  "store": rows})
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"scanned vs host loop: leaves {sorted(got)} "
+                             f"vs {sorted(want)}")
+    apart, max_abs, max_rel = 0, 0.0, 0.0
+    for k, v in want.items():
+        g = got[k].detach().cpu()
+        v = v.detach().cpu()
+        if not torch.equal(g, v):
+            apart += 1
+            diff = float((g.double() - v.double()).abs().max())
+            max_abs = max(max_abs, diff)
+            max_rel = max(max_rel, diff / max(float(v.double().abs().max()),
+                                              1e-30))
+    return dict(leaves=len(want), apart=apart, max_abs=max_abs,
+                max_rel=max_rel)
+
+
+def _scanned(loss_fn, init, spec, ds, rounds, fused=True):
+    """A scanned trainer on the card that must capture its rounds."""
+    from repro_torch.core import FederatedTrainer
+
+    tr = FederatedTrainer(loss_fn, init, spec, ds, seed=0,
+                          use_fused_update=fused, device="cuda",
+                          scan_rounds=rounds)
+    if tr.scan_fallback_reason is not None or not tr.scan_captured:
+        raise AssertionError(f"not a captured scanned trainer: fallback "
+                             f"{tr.scan_fallback_reason!r}, graph reason "
+                             f"{tr.scan_graph_reason!r}")
+    return tr
+
+
+def _want_launches(**nonzero) -> dict:
+    """Every kernel's expected launch count: ``nonzero``, else 0."""
+    return {k: nonzero.get(k, 0) for k in launches()}
+
+
+def phase_fig3_scanned(result):
+    """Phase 22: the paper's Figure 3 (``benchmarks/fig3_quadratics.py``'s
+    own settings) through the scanned engine: ``make_paper_fig3`` at G 1,
+    10 and 100; sgd K 1, fedavg K 2 and 10, scaffold K 2 and 10; N = S =
+    2, eta_l 0.1, 60 rounds as one chunk, each round a replay of the
+    captured graph. SCAFFOLD's steps through B1 (60 S K launches, counted
+    through the replays); each scaffold row once more with the K-step
+    kernel (B3, 60 S). Prints the suboptimality table as the script does;
+    fails on a non-finite value, a launch count, a fallback."""
+    import torch
+
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.data import make_paper_fig3, quadratic_loss
+
+    rounds, subs = 60, {}
+    rows = (("sgd", 1), ("fedavg", 2), ("fedavg", 10), ("scaffold", 2),
+            ("scaffold", 10))
+    b1 = b3 = 0
+    for G in (1.0, 10.0, 100.0):
+        ds = make_paper_fig3(G=G)
+        init = lambda gen, d=ds.dim: {"x": torch.ones(d)}  # noqa: E731
+        for algo, K in rows:
+            for path in (("fused", "megakernel") if algo == "scaffold"
+                         else ("fused",)):
+                spec = FedRoundSpec(algorithm=algo, num_clients=2,
+                                    num_sampled=2, local_steps=K,
+                                    local_batch=1, eta_l=0.1,
+                                    use_megakernel=path == "megakernel")
+                tr = _scanned(quadratic_loss, init, spec, ds, rounds)
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.run(rounds)
+                torch.cuda.synchronize()
+                sec = (time.perf_counter() - t0) / rounds
+                counts = launches()
+                want = _want_launches()
+                if algo == "scaffold" and path == "fused":
+                    want["scaffold_update"] = rounds * 2 * K
+                elif algo == "scaffold":
+                    want["scaffold_local_loop"] = rounds * 2
+                sub = ds.suboptimality(tr.x)
+                subs[(G, algo, K, path)] = sub
+                log(f"fig3 scanned G={G:g} {algo}-K{K} ({path}): "
+                    f"suboptimality {sub:.4e} after {rounds} rounds in one "
+                    f"chunk; captured {tr.scan_captured}; {sec:.5f} s/round "
+                    f"(the chunk's host clock over its rounds, warm-up and "
+                    f"capture included); launches {counts}")
+                if counts != want or not math.isfinite(sub) or (
+                        tr.scan_fallback_reason is not None) or (
+                        path == "megakernel"
+                        and tr.megakernel_fallback_reason != ""):
+                    raise AssertionError(f"fig3 {algo}-K{K} G {G} {path}: "
+                                         f"{counts} vs {want}, {sub}")
+                b1 += counts["scaffold_update"]
+                b3 += counts["scaffold_local_loop"]
+                if (G, algo, K, path) == (10.0, "scaffold", 10, "fused"):
+                    result["fig3_scan_s"] = sec
+                tr.close()
+    # the sync host loop on one row, for its s/round
+    ds = make_paper_fig3(G=10.0)
+    spec = FedRoundSpec(algorithm="scaffold", num_clients=2, num_sampled=2,
+                        local_steps=10, local_batch=1, eta_l=0.1)
+    tr = FederatedTrainer(quadratic_loss, lambda gen: {"x": torch.ones(
+        ds.dim)}, spec, ds, seed=0, use_fused_update=True, device="cuda")
+    secs = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run_round()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    result["fig3_sync_s"] = statistics.median(secs[1:])
+    log(f"fig3 G=10 scaffold-K10 (fused): the sync host loop "
+        f"{result['fig3_sync_s']:.5f} s/round (median of rounds 2-{rounds})"
+        f", the scanned chunk {result['fig3_scan_s']:.5f} s/round")
+    log("fig3 scanned: suboptimality after rounds (rows: algo-K, cols: G)")
+    gs = (1.0, 10.0, 100.0)
+    log(f"{'algo':>24s} " + " ".join(f"G={g:<10.0f}" for g in gs))
+    for algo, K in rows:
+        for path in (("fused", "megakernel") if algo == "scaffold"
+                     else ("fused",)):
+            label = f"{algo}-K{K}" + (" (B3)" if path == "megakernel" else "")
+            log(f"{label:>24s} " + " ".join(
+                f"{subs[(g, algo, K, path)]:<12.3e}" for g in gs))
+    result.setdefault("b1_paths", {})["fig3 scanned"] = b1
+    result.setdefault("b3_paths", {})["fig3 scanned"] = b3
+
+
+class _EventTimedGraph:
+    """A round graph whose every replay is bracketed by CUDA events."""
+
+    def __init__(self, graph):
+        self.graph, self.spans = graph, []
+
+    def replay(self):
+        import torch
+
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        self.graph.replay()
+        b.record()
+        self.spans.append((a, b))
+
+
+def _busy_share(tr, chunks: int = 3):
+    """The card-busy share of a captured trainer's chunks: ``chunks``
+    more chunks of its size, each replay bracketed by CUDA events; the
+    sum of the replays' device spans over the chunk's host-clock wall
+    (the card synchronised on both sides), the median over the chunks.
+    Returns ``(share, ms of card time a round)``."""
+    import torch
+
+    timed = tr._graph = _EventTimedGraph(tr._graph)
+    shares, per_round = [], []
+    for _ in range(chunks):
+        timed.spans.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(tr.scan_rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy = sum(a.elapsed_time(b) for a, b in timed.spans) / 1e3
+        shares.append(busy / wall)
+        per_round.append(1e3 * busy / len(timed.spans))
+    tr._graph = timed.graph
+    return statistics.median(shares), statistics.median(per_round)
+
+
+def phase_table5_scanned(result):
+    """Phase 23: the paper's Table 5 (``benchmarks/table5_nn.py``'s
+    settings, uncut) through the scanned engine: N 50 of 20,000 samples at
+    similarity 0 and 10, the MLP, S 10, batch 0.2 of a shard, eta_l 0.3,
+    150 rounds in chunks of 5 (``scan_rounds=5``), test accuracy every 5
+    rounds; SGD (K 1), FedAvg and SCAFFOLD (K 25), SCAFFOLD's steps
+    through B1 (150 x 10 x 25 launches, counted through the replays).
+    Logs s/round (the host clock over a synchronised chunk, over its
+    rounds) against phase 16's sync figure and the card-busy share (the
+    replays' spans between CUDA events over a chunk's wall). Fails on a
+    non-finite loss, a launch count, a best accuracy of FedAvg or
+    SCAFFOLD at or under 0.10; on SCAFFOLD at 0 % a checkpoint after 7
+    rounds (mid-chunk), restored into a fresh trainer that runs to round
+    15, must equal the unbroken run there bitwise."""
+    import torch
+
+    from repro_torch.checkpoint import load_trainer, save_trainer
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.data import EmnistLikeFederated
+    from repro_torch.models import simple
+
+    chunk = EMNIST_SCAN_CHUNK
+    best_all, b1 = {}, 0
+    for sim in (0.0, 10.0):
+        data = EmnistLikeFederated(similarity_pct=sim, **EMNIST)
+        lb = data.local_batch_size(0.2)
+        tb = data.test_batch(device="cuda")
+        for algo, K in (("sgd", 1), ("fedavg", 25), ("scaffold", 25)):
+            spec = FedRoundSpec(algorithm=algo, local_batch=lb,
+                                **{**EMNIST_SPEC, "local_steps": K})
+            tr = _mlp_trainer(spec, data, scan_rounds=chunk)
+            if not tr.scan_captured:
+                raise AssertionError(f"table 5 scanned {algo}: not captured "
+                                     f"({tr.scan_graph_reason})")
+            reset_launches()
+            secs, accs, snap = [], [], None
+            for c in range(EMNIST_ROUNDS // chunk):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.run(chunk)
+                torch.cuda.synchronize()
+                secs.append((time.perf_counter() - t0) / chunk)
+                m = tr.history[-1]
+                if not math.isfinite(m["loss"]):
+                    raise AssertionError(f"table 5 scanned {algo} sim {sim}:"
+                                         f" round {tr.round_idx} {m}")
+                accs.append(simple.accuracy(simple.mlp_logits, tr.x, tb))
+                if tr.round_idx == 15 and algo == "scaffold" and sim == 0.0:
+                    snap = {k: v.clone() for k, v in _flat(
+                        {"x": tr.x, "c": tr.c,
+                         "store": tr._device_families()}).items()}
+            counts = launches()
+            want = _want_launches()
+            if algo == "scaffold":
+                want["scaffold_update"] = (EMNIST_ROUNDS * spec.num_sampled
+                                           * spec.local_steps)
+                b1 += counts["scaffold_update"]
+            best = best_all[(algo, sim)] = max(accs)
+            sync = result["table5_sync_s"][(algo, sim)]
+            steady = statistics.median(secs[1:])
+            log(f"table 5 scanned, sim {sim:g}%, {algo} (K {K}): best test "
+                f"accuracy {best:.4f} (every {chunk} rounds, last "
+                + ", ".join(f"{a:.3f}" for a in accs[-6:])
+                + f"); final loss {m['loss']:.4f}; captured "
+                f"{tr.scan_captured}; s/round {steady:.5f} (median of chunks "
+                f"2-{len(secs)}; chunk 1 {secs[0]:.4f}, warm-up and capture) "
+                f"against the sync loop's {sync:.5f} (phase 16): "
+                f"{sync / steady:.1f}x; launches {counts}")
+            if counts != want:
+                raise AssertionError(f"table 5 scanned {algo}: {counts} != "
+                                     f"{want}")
+            if algo != "sgd" and not best > 0.10:
+                raise AssertionError(f"table 5 scanned {algo} sim {sim}: "
+                                     f"best accuracy {best}")
+            result.setdefault("table5_scan_s", {})[(algo, sim)] = steady
+            if algo == "scaffold" and sim == 0.0:
+                ckpt = OUT / "table5_scan_ckpt"
+                a = _mlp_trainer(spec, data, scan_rounds=chunk)
+                a.run(7)
+                save_trainer(str(ckpt), a)
+                b = _mlp_trainer(spec, data, scan_rounds=chunk)
+                load_trainer(str(ckpt) + ".npz", b)
+                b.run(8)
+                got = _flat({"x": b.x, "c": b.c,
+                             "store": b._device_families()})
+                apart = [k for k, v in snap.items()
+                         if not torch.equal(got[k], v)]
+                log(f"table 5 scanned, scaffold sim 0%: checkpoint after 7 "
+                    f"rounds (chunks 5 + 2), restored into a fresh trainer "
+                    f"that ran rounds 8-15: {len(apart)} of {len(snap)} "
+                    f"leaves apart from the unbroken run at round 15")
+                if apart:
+                    raise AssertionError(f"table 5 resume mid-chunk: {apart}")
+                a.close()
+                b.close()
+                share, card = _busy_share(tr)
+                result["table5_busy"] = share
+                log(f"table 5 scanned, scaffold sim 0%: card-busy share "
+                    f"{100 * share:.1f}% (3 more chunks of {chunk}, each "
+                    f"replay between CUDA events, over the chunk's wall), "
+                    f"{card:.3f} ms of card time a round")
+            tr.close()
+            del tr
+        del data, tb
+    for sim in (0.0, 10.0):
+        order = sorted(("sgd", "fedavg", "scaffold"),
+                       key=lambda a: -best_all[(a, sim)])
+        log(f"table 5 scanned, sim {sim:g}%: best accuracy order "
+            + " > ".join(f"{a} {best_all[(a, sim)]:.4f}" for a in order)
+            + f" after {EMNIST_ROUNDS} rounds (the paper's: scaffold > "
+            f"fedavg > sgd; not asserted)")
+    result.setdefault("b1_paths", {})["table 5 scanned"] = b1
+    torch.cuda.empty_cache()
+
+
+def _held_to_host_loop(tag, tr, rounds, spec, ds, loss_fn, init, key):
+    """Run a captured scanned trainer ``rounds`` rounds one at a time
+    (each round timed, the card synchronised), then the eager host loop
+    on the same device streams; both must launch ``key`` the same number
+    of times, and the trainer's state equal the loop's bitwise. Returns
+    the trainer's launches of ``key``."""
+    import torch
+
+    reset_launches()
+    secs = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run_round()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    scan_counts = launches()
+    reset_launches()
+    host_secs = time.perf_counter()
+    server, rows, _ = host_loop_device_rng(spec, ds, rounds, loss_fn, init)
+    torch.cuda.synchronize()
+    host_secs = (time.perf_counter() - host_secs) / rounds
+    host_counts = launches()
+    cmp = scanned_vs_host_loop(tr, server, rows)
+    log(f"{tag}: scanned rounds {', '.join(f'{s:.4f}' for s in secs)} s "
+        f"(1: warm-up, 2: capture and replay, then replays; captured "
+        f"{tr.scan_captured}), the eager host loop on the same streams "
+        f"{host_secs:.4f} s a round; launches scanned {scan_counts}, host "
+        f"loop {host_counts}; {cmp['apart']} of {cmp['leaves']} leaves "
+        f"apart (max |diff| {cmp['max_abs']:.3e}, rel {cmp['max_rel']:.3e})")
+    if scan_counts != host_counts or scan_counts[key] == 0:
+        raise AssertionError(f"{tag}: launches {scan_counts} vs "
+                             f"{host_counts}")
+    if cmp["apart"]:
+        raise AssertionError(f"{tag}: scanned vs host loop {cmp}")
+    return scan_counts[key], secs
+
+
+def phase_capture_checks(result):
+    """Phase 24: the heavy-ball and K-step kernels inside captured rounds,
+    each trainer held bitwise to the port's eager per-round host loop on
+    the same device streams: quadratics at phases 13-14's
+    ``make_similarity_quadratics(20, 1024, ...)``, S 4, K 10, 3 rounds,
+    through B3 (sgd) and B4 (local heavy-ball); EMNIST ``scaffold_m``
+    with local heavy-ball through B2, 3 rounds."""
+    import torch
+
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.data import (
+        EmnistLikeFederated,
+        make_similarity_quadratics,
+        quadratic_loss,
+    )
+    from repro_torch.models import simple
+
+    ds = make_similarity_quadratics(20, 1024, delta=0.3, G=8.0, mu=0.3)
+    init = lambda gen: {"x": torch.ones(ds.dim)}  # noqa: E731
+    base = dict(num_clients=20, num_sampled=4, local_steps=10, local_batch=1,
+                eta_l=0.1, use_megakernel=True)
+    for tag, spec, key, path in (
+            ("quadratics B3 scanned", FedRoundSpec(algorithm="scaffold",
+                                                   **base),
+             "scaffold_local_loop", "b3_paths"),
+            ("quadratics B4 scanned", FedRoundSpec(
+                algorithm="scaffold_m", eta_g=0.1, local_solver="momentum",
+                local_momentum=0.9, **base),
+             "scaffold_momentum_local_loop", "b4_paths")):
+        tr = _scanned(quadratic_loss, init, spec, ds, 3)
+        n, secs = _held_to_host_loop(tag, tr, 3, spec, ds, quadratic_loss,
+                                     init, key)
+        if n != 3 * spec.num_sampled:
+            raise AssertionError(f"{tag}: {key} launched {n}")
+        result.setdefault(path, {})[tag] = n
+        result.setdefault("quad_scan_s", {})[tag] = secs[-1]
+        tr.close()
+    data = EmnistLikeFederated(similarity_pct=10.0, **EMNIST)
+    spec = FedRoundSpec(algorithm="scaffold_m", local_solver="momentum",
+                        local_momentum=0.9,
+                        local_batch=data.local_batch_size(0.2),
+                        **EMNIST_SPEC)
+    tr = _mlp_trainer(spec, data, scan_rounds=3)
+    init = lambda gen: simple.mlp_init(gen, 784, 62,  # noqa: E731
+                                       device=gen.device)
+    n, _ = _held_to_host_loop("emnist scaffold_m heavy-ball B2 scanned", tr,
+                              3, spec, data, simple.mlp_loss, init,
+                              "scaffold_momentum_update")
+    if n != 3 * spec.num_sampled * spec.local_steps:
+        raise AssertionError(f"emnist heavy-ball scanned: B2 launched {n}")
+    result.setdefault("b2_paths", {})["emnist heavy-ball scanned"] = n
+    tr.close()
+
+
+def phase_gemma_scanned(result):
+    """Phase 25: gemma3-1b at its published widths cut to 2 layers (both
+    "W", so B5 runs its band path at seq 2048), SCAFFOLD, N 4, S 2, K 2,
+    ``--scan-rounds 2``, 4 rounds through ``repro_torch.launch.train.main``:
+    B5 inside the captured round (its launches counted through the
+    replays), held to the eager host loop on the same device streams
+    within 1e-4 of each leaf's scale (the LM parity's bound)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+
+    base = get_config("gemma3-1b")
+    seq_len, chunk, layers, rounds = 2048, base.vocab_size // 16, 2, 4
+    cfg = dataclasses.replace(base, num_layers=layers,
+                              loss_chunk_vocab=chunk)
+    preset = train.preset_config
+    train.preset_config = lambda arch, p: dataclasses.replace(
+        preset(arch, p), num_layers=layers)
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        tr = train.main(_train_argv("gemma3-1b", seq_len, rounds, chunk,
+                                    "--scan-rounds", "2") + ["--log-every",
+                                                             "2"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        train.preset_config = preset
+    counts = launches()
+    n_w = cfg.pattern_for_layers().count("W")
+    steps = tr.spec.num_sampled * tr.spec.local_steps
+    # training: B5 on every W layer of every step, B1 on every step; the
+    # entry point's eval after rounds 1, 2 and 4: B5 once a W layer
+    want = _want_launches(swa_attention=n_w * (rounds * steps + 3),
+                          scaffold_update=rounds * steps)
+    log(f"gemma3-1b scanned, {layers} layers ({cfg.pattern_for_layers()}), "
+        f"seq {seq_len}: {rounds} rounds in {wall:.1f} s through the entry "
+        f"point (chunks 1, 1, 2; warm-up, capture, replays); captured "
+        f"{tr.scan_captured}; launches {counts}, want {want}")
+    if not tr.scan_captured or counts != want:
+        raise AssertionError(f"gemma scanned: {counts} vs {want}")
+    reset_launches()
+    server, rows, _ = host_loop_device_rng(
+        tr.spec, tr.dataset, rounds, partial(M.loss_fn, cfg),
+        partial(M.init_params, cfg, device="cuda"))
+    cmp = scanned_vs_host_loop(tr, server, rows)
+    log(f"gemma3-1b scanned vs the eager host loop on the same streams: "
+        f"{cmp['apart']} of {cmp['leaves']} leaves apart, max |diff| "
+        f"{cmp['max_abs']:.3e}, max rel {cmp['max_rel']:.3e} (bound 1e-4); "
+        f"host loop launches {launches()}")
+    if not cmp["max_rel"] <= 1e-4:
+        raise AssertionError(f"gemma scanned vs host loop: {cmp}")
+    result.setdefault("b5_paths", {})["gemma3-1b 2 layers scanned"] = counts[
+        "swa_attention"]
+    result.setdefault("b1_paths", {})["gemma3-1b 2 layers scanned"] = counts[
+        "scaffold_update"]
+    tr.close()
+    del tr, server, rows
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     """Run every phase; 0 when all passed."""
     import torch
@@ -2578,9 +3135,13 @@ def main() -> int:
     phase_lora_gemma(result)
     phase_head_only_gemma(result)
     phase_spaces_small(result)
+    phase_fig3_scanned(result)
+    phase_table5_scanned(result)
+    phase_capture_checks(result)
+    phase_gemma_scanned(result)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     # B1-B4 are bound by bytes and no one PyTorch call computes them
-    for key in ("b1", "b2", "b5"):
+    for key in ("b1", "b2", "b3", "b4", "b5"):
         paths = result.pop(f"{key}_paths")
         result[f"{key}_launches"] = sum(paths.values())
         result[key]["launches_by_path"] = paths

@@ -9,7 +9,9 @@ codec or the solver keeps them) and, under an update space that trains a
 subset, the frozen ``base``; ``extra`` holds the round counter, the host
 RNG states and the space's selection. The port's trees are flat dicts
 keyed by the reference's leaf paths, so a key reads the same in both
-packages and a checkpoint crosses them.
+packages and a checkpoint crosses them, and the engines: a scanned
+trainer's device store is synced to its host stores on save and pushed
+back on restore.
 
 numpy has no bfloat16: a bf16 leaf is written as its raw 2-byte words
 (dtype ``|V2``, what ``np.savez`` makes of the reference's bf16 leaves)
@@ -132,7 +134,9 @@ def _trainer_tree(trainer) -> Dict[str, Any]:
 def save_trainer(path: str, trainer):
     """Checkpoint a ``FederatedTrainer``: its ``ServerState``, every
     client's rows, the round counter, the host RNG states and the update
-    space's selection."""
+    space's selection. A scanned trainer's device store is mirrored into
+    its host stores first, so the archive is the same in every engine."""
+    trainer.sync_host_store()
     extra = {"round": trainer.round_idx,
              "host_rng": trainer.host_rng_state()}
     if trainer.update_space.trains_subset:
@@ -176,6 +180,7 @@ def load_trainer(path: str, trainer):
         trainer.residual_store.scatter(all_ids, tree["residuals"])
     if trainer.solver_store is not None:
         trainer.solver_store.scatter(all_ids, tree["solver_slots"])
+    trainer.push_host_store_to_device()
     trainer.round_idx = int(extra.get("round", 0))
     if "host_rng" in extra:
         trainer.set_host_rng_state(extra["host_rng"])

@@ -1,9 +1,12 @@
 """SCAFFOLD and its baselines in PyTorch (the JAX package's ``core``).
 
   run_round        — one communication round over typed states
+  run_rounds       — R rounds of the scanned engine over a device store
   federated_round  — the reference's tuple shim over run_round
   client_update    — one client's K corrected local steps
-  FederatedTrainer — the synchronous host controller
+  FederatedTrainer — the host controller: the synchronous loop and the
+                     scanned engine (``scan_rounds``)
+  device_sample_ids, DeviceClientSampler — the scanned engine's cohorts
 
 Registries, each listable and open to user entries: ``Algorithm``
 (``register_algorithm``), ``ServerOptimizer``, ``LocalSolver``,
@@ -26,6 +29,7 @@ from repro_torch.core.api import (  # noqa: F401
     register_algorithm,
     register_server_optimizer,
     resolve_server_optimizer,
+    run_rounds,
     server_optimizer_names,
 )
 from repro_torch.core.compression import (  # noqa: F401
@@ -62,7 +66,11 @@ from repro_torch.core.rounds import (  # noqa: F401
     federated_round,
     run_round,
 )
-from repro_torch.core.sampling import ClientSampler  # noqa: F401
+from repro_torch.core.sampling import (  # noqa: F401
+    ClientSampler,
+    DeviceClientSampler,
+    device_sample_ids,
+)
 from repro_torch.core.store import ClientStateStore  # noqa: F401
 from repro_torch.core.update_space import (  # noqa: F401
     FullSpace,

@@ -14,6 +14,10 @@
 Registered algorithms: ``scaffold`` (options I and II), ``scaffold_m``,
 ``fedavg``, ``fedavgm``, ``fedprox`` and the large-batch ``sgd``
 baseline; server optimizers: ``sgd``, ``momentum`` and ``adam``.
+
+``run_rounds`` is the scanned engine's round loop over a device-resident
+``(N, ...)`` client store (the reference's ``lax.scan``), and
+``scan_round`` its body, one round.
 """
 from __future__ import annotations
 
@@ -324,3 +328,121 @@ def init_server_state(spec, x) -> ServerState:
     resolved server optimizer's initial slots."""
     opt = get_server_optimizer(resolve_server_optimizer(spec))
     return ServerState(x=x, c=tree_zeros_like(x), opt_state=opt.init(spec, x))
+
+
+# ---------------------------------------------------------------------------
+# the scanned multi-round engine
+# ---------------------------------------------------------------------------
+
+
+def store_families(spec):
+    """The row families of the scanned engine's client store for this
+    spec: ``("c_i",)`` alone (a bare store), or with ``"residual"`` (a
+    stateful uplink codec) and ``"solver"`` (a stateful local solver), a
+    dict of those keys."""
+    from repro_torch.core.compression import get_compressor
+    from repro_torch.core.local_solver import (
+        get_local_solver,
+        resolve_local_solver,
+    )
+
+    fams = ("c_i",)
+    if get_compressor(spec.compress).stateful:
+        fams += ("residual",)
+    if get_local_solver(resolve_local_solver(spec)).stateful:
+        fams += ("solver",)
+    return fams
+
+
+def scan_round(grad_fn, spec, server: ServerState, client_store, t, *,
+               data, batch_fn, sample_key, data_key, comp_key=None,
+               priv_key=None, sizes=None,
+               use_fused_update: bool = False) -> RoundOutput:
+    """One round of the scanned engine at absolute round ``t``: the
+    cohort ``device_sample_ids(sample_key, t, N, S)``, its batches
+    ``batch_fn(data, ids, data_key.fold_in(t))``, its rows gathered from
+    the device store, ``core.rounds.run_round`` (the compression and
+    privacy keys folded by ``t``), and the cohort's new rows written
+    back into ``client_store`` in place. Returns the round's
+    ``RoundOutput``; its ``server`` is new, the store is the caller's."""
+    from repro_torch.core.rounds import run_round
+    from repro_torch.core.sampling import device_sample_ids
+    from repro_torch.core.tree import tree_gather, tree_scatter
+
+    fams = store_families(spec)
+    wrapped = len(fams) > 1
+    stores = client_store if wrapped else {"c_i": client_store}
+    ids = device_sample_ids(sample_key, t, spec.num_clients,
+                            spec.num_sampled)
+    batches = batch_fn(data, ids, data_key.fold_in(t))
+    rows = {name: tree_gather(stores[name], ids) for name in fams}
+    clients = ClientRoundState(
+        c_i=rows["c_i"], uplink_residual=rows.get("residual"),
+        solver_slots=rows.get("solver"),
+        weights=None if sizes is None else sizes.index_select(0, ids))
+    out = run_round(grad_fn, spec, server, clients, batches,
+                    use_fused_update=use_fused_update,
+                    comp_key=None if comp_key is None else comp_key.fold_in(t),
+                    priv_key=None if priv_key is None else priv_key.fold_in(t),
+                    dp_round=t)
+    new = {"c_i": out.clients.c_i, "residual": out.clients.uplink_residual,
+           "solver": out.clients.solver_slots}
+    for name in fams:
+        tree_scatter(stores[name], ids, new[name])
+    return out
+
+
+def run_rounds(grad_fn, spec, server: ServerState, client_store, R: int, *,
+               data, batch_fn, sample_key, data_key, comp_key=None,
+               priv_key=None, start_round=0, sizes=None,
+               use_fused_update: bool = False, shard_fn=None):
+    """R communication rounds on the device, with no host round trip but
+    the privatizer's exact clip: the reference's ``run_rounds``, a loop
+    of :func:`scan_round` over rounds ``start_round .. start_round + R -
+    1``.
+
+    server:       ``ServerState`` at round ``start_round``.
+    client_store: the full client-state store, leaves ``(N, ...)`` on the
+                  device: the bare c_i tree, or a dict of the row
+                  families the config carries (:func:`store_families`:
+                  ``{"c_i"[, "residual"][, "solver"]}``, slot rows flat
+                  as ``core.tree.tree_flatten_slots`` keys them). It is
+                  updated in place.
+    data:         the dataset's device tensors (``dataset.device_data()``).
+    batch_fn:     ``(data, ids, key) -> batches`` with leaves ``(S, K, b,
+                  ...)`` (``dataset.device_batch_fn(K, b)``).
+    sample_key, data_key, comp_key, priv_key: the root keys
+                  (``core.streams.stream_key``) of the cohort, data,
+                  compression and privacy streams, folded by the round.
+    sizes:        optional ``(N,)`` fp32 per-client sizes for
+                  ``spec.weighted_aggregation``.
+
+    Every stream is a pure function of (root key, absolute round), so R
+    rounds here equal R calls of ``run_round`` on the same streams, and
+    any chunking of them, bit for bit. Returns ``(server, client_store,
+    metrics)``, each metric stacked ``(R,)`` (the byte counts int64, the
+    float64 ``dp_epsilon`` float64).
+    """
+    if shard_fn is not None:
+        raise NotImplementedError("shard_fn: the port runs on one device")
+    fams = store_families(spec)
+    if len(fams) > 1 and not (isinstance(client_store, dict)
+                              and set(fams) <= set(client_store)):
+        raise ValueError(
+            f"this config carries per-client rows beyond c_i: pass "
+            f"client_store as a dict with keys {sorted(fams)} and (N, ...) "
+            f"leaves")
+    history = []
+    for r in range(R):
+        out = scan_round(grad_fn, spec, server, client_store,
+                         start_round + r, data=data, batch_fn=batch_fn,
+                         sample_key=sample_key, data_key=data_key,
+                         comp_key=comp_key, priv_key=priv_key, sizes=sizes,
+                         use_fused_update=use_fused_update)
+        server = out.server
+        history.append(out.metrics)
+    metrics = {k: (torch.stack([m[k] for m in history])
+                   if isinstance(history[0][k], torch.Tensor)
+                   else torch.tensor([m[k] for m in history]))
+               for k in history[0]} if history else {}
+    return server, client_store, metrics

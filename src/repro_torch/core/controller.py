@@ -1,5 +1,6 @@
 """Host-side federated training controller (the JAX package's
-``core/controller.py``), synchronous mode.
+``core/controller.py``): the synchronous host loop and the scanned
+engine.
 
 ``FederatedTrainer`` owns the ``ServerState`` (x, c and the server
 optimizer's slots) on its device, the N-client host stores of control
@@ -21,8 +22,32 @@ Under an update space that trains a subset (``spec.update_space``,
 differentiates in delta space; every store, residual and slot row and
 the byte counts then follow the deltas. ``eval_params()`` merges them.
 
-The pipelined, scanned, tiered and async modes are not ported yet and
-raise ``NotImplementedError``.
+Scanned mode (``scan_rounds=R > 0``, the reference's DESIGN.md §10)
+moves the round loop onto the device in chunks of up to R rounds: the
+cohorts come from ``DeviceClientSampler`` (stream ``seed``), the data
+from the dataset's device protocol (``device_data``,
+``device_batch_fn``, stream ``seed + 1``), and the full ``(N, ...)``
+client store (c_i, and the residual and slot rows the config carries)
+stays on the device (``device_store``), its host stores a mirror that
+``sync_host_store`` refreshes for a checkpoint. Every stream is a
+function of (seed, absolute round), so any chunking runs the same
+rounds bit for bit, and a resume mid-chunk too. A chunk draws its
+rounds' randomness up front into fixed device buffers
+(``core.streams.DrawAhead``); on the card each round is then one replay
+of a CUDA graph of the round, captured once per trainer after one eager
+warm-up round on a side stream, over static buffers: the server state
+(written back in place at the end of the round), the device store, the
+drawn-ahead row and the chunk's metric buffers. The host reads the
+metrics once a chunk. A round whose control flow needs the host (the
+privatizer's exact clip) runs the same chunks uncaptured
+(``scan_graph_reason`` says why); a capture or replay that fails raises.
+A dataset without the device protocol falls back to the host loop with
+the reference's warning and ``scan_fallback_reason``.
+``pipeline_depth`` is ignored while scanning, as the reference ignores
+it.
+
+The pipelined, tiered and async modes are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,6 +62,7 @@ from repro_torch.core.api import (
     ClientRoundState,
     get_algorithm,
     init_server_state,
+    scan_round,
 )
 from repro_torch.core.compression import get_compressor, round_comm_bytes
 from repro_torch.core.local_solver import (
@@ -44,10 +70,12 @@ from repro_torch.core.local_solver import (
     megakernel_incompatibility,
     resolve_local_solver,
 )
+from repro_torch.core.privatizer import get_privatizer
 from repro_torch.core.rounds import run_round
-from repro_torch.core.sampling import ClientSampler
+from repro_torch.core.sampling import ClientSampler, DeviceClientSampler
 from repro_torch.core.store import ClientStateStore
 from repro_torch.core.streams import (
+    DrawAhead,
     base_from_state,
     key_state,
     round_key,
@@ -59,6 +87,34 @@ from repro_torch.core.update_space import (
     resolve_update_space,
 )
 from repro_torch.device import resolve_device
+from repro_torch.kernels import counts
+
+# bytes of drawn-ahead randomness a scanned trainer holds on the device:
+# a chunk whose rounds draw more (noise on a large model) is drawn and
+# run in pieces of fewer rounds
+DRAW_AHEAD_BYTES = 1 << 30
+
+
+def _leaves(tree):
+    """The tensors of nested dicts of tensors, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _state_tree(server):
+    """A ``ServerState``'s tensors as nested dicts."""
+    return {"x": server.x, "c": server.c, "opt_state": server.opt_state}
+
+
+def _copy_into(dst, src) -> None:
+    """Copy nested dicts of tensors ``src`` into the like-structured
+    ``dst`` in place (a tensor that is ``dst``'s own is left as it is)."""
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _copy_into(v, src[k])
+        elif src[k] is not v:
+            v.copy_(src[k])
 
 
 def make_grad_fn(loss_fn: Callable, *, space=None, spec=None,
@@ -121,6 +177,12 @@ class FederatedTrainer:
     that ignores it, e.g. one returning converted JAX weights, is fine);
     the leaves are moved to ``device``. ``device`` defaults to the card
     and raises where there is none.
+
+    ``scan_rounds=R > 0`` runs the scanned engine in chunks of up to R
+    rounds (the dataset's ``device_data(device=)``,
+    ``device_batch_fn(K, b)`` and, weighted, ``device_client_sizes
+    (device=)``); a dataset without them falls back to the host loop and
+    says why in ``scan_fallback_reason``.
     """
 
     def __init__(self, loss_fn, init_params, spec, dataset, *, seed: int = 0,
@@ -128,20 +190,39 @@ class FederatedTrainer:
                  pipeline_depth: int = 0, scan_rounds: int = 0,
                  store: str = "dense", store_backend: str = "",
                  async_buffer: int = 0):
+        assert pipeline_depth >= 0, pipeline_depth
+        assert scan_rounds >= 0, scan_rounds
+        if async_buffer and scan_rounds:
+            raise ValueError(
+                "async_buffer is incompatible with scan_rounds: the scanned "
+                "engine is a synchronous-cohort loop by construction")
+        if async_buffer and pipeline_depth:
+            raise ValueError(
+                "async_buffer is incompatible with pipeline_depth: the async "
+                "engine owns its own dispatch overlap")
         self.device = resolve_device(device)
+        self.spec = spec
+        self.dataset = dataset
+        self.scan_rounds = int(scan_rounds)
+        self.scan_fallback_reason: Optional[str] = None
+        if self.scan_rounds > 0:
+            self.scan_fallback_reason = self._scan_incompatibility()
+            if self.scan_fallback_reason is not None:
+                warnings.warn(
+                    f"scan_rounds={scan_rounds} requested but running the "
+                    f"host loop: {self.scan_fallback_reason}", stacklevel=2)
+        self._scan_mode = (self.scan_rounds > 0
+                           and self.scan_fallback_reason is None)
         pending = []
-        if pipeline_depth:
+        if pipeline_depth and not self._scan_mode:
             pending.append("pipelined engine (pipeline_depth)")
-        if scan_rounds:
-            pending.append("scanned engine (scan_rounds)")
         if store != "dense":
             pending.append(f"store {store!r}")
         if async_buffer:
             pending.append("async engine (async_buffer)")
         if pending:
             raise NotImplementedError(", ".join(pending) + ": not ported yet")
-        self.spec = spec
-        self.dataset = dataset
+        self.pipeline_depth = int(pipeline_depth)
         self.algorithm = get_algorithm(spec.algorithm)
         if spec.weighted_aggregation and not hasattr(dataset, "client_sizes"):
             raise ValueError(
@@ -213,6 +294,26 @@ class FederatedTrainer:
                     f"path: {self.megakernel_fallback_reason}", stacklevel=2)
         self.round_idx = 0
         self.history = []
+        if self._scan_mode:
+            self._setup_scan(seed)
+
+    def _scan_incompatibility(self) -> Optional[str]:
+        """Why this config can't run the scanned engine (None = it can);
+        the reference's reasons, word for word."""
+        d = self.dataset
+        if not (hasattr(d, "device_data") and hasattr(d, "device_batch_fn")):
+            return (f"dataset {type(d).__name__} has no device-data protocol "
+                    f"(device_data()/device_batch_fn(K, b))")
+        if (self.spec.weighted_aggregation
+                and not hasattr(d, "device_client_sizes")):
+            return ("weighted_aggregation needs "
+                    f"{type(d).__name__}.device_client_sizes()")
+        return None
+
+    @property
+    def scan_active(self) -> bool:
+        """True when rounds run through the scanned engine."""
+        return self._scan_mode
 
     # -- views of the server state ----------------------------------------
 
@@ -247,11 +348,16 @@ class FederatedTrainer:
     def host_rng_state(self) -> Dict[str, Any]:
         """The sampler's and the data stream's numpy states, and the
         keyed streams' root keys (stateless in the round index, so their
-        seeds are all they need), under the reference's keys."""
-        return {"sampler": self.sampler.get_state(),
-                "data_rng": self._rng.bit_generator.state,
-                "comp_key": key_state(self._comp_seed),
-                "priv_key": key_state(self._priv_seed)}
+        seeds are all they need), under the reference's keys; in scanned
+        mode also the device cohort and data streams' root keys."""
+        state = {"sampler": self.sampler.get_state(),
+                 "data_rng": self._rng.bit_generator.state,
+                 "comp_key": key_state(self._comp_seed),
+                 "priv_key": key_state(self._priv_seed)}
+        if self._scan_mode:
+            state["device_sampler"] = self.device_sampler.get_state()
+            state["device_data_key"] = key_state(self._data_seed)
+        return state
 
     def set_host_rng_state(self, state: Dict[str, Any]) -> None:
         self.sampler.set_state(state["sampler"])
@@ -260,12 +366,232 @@ class FederatedTrainer:
             self._comp_seed = base_from_state(state["comp_key"])
         if "priv_key" in state:
             self._priv_seed = base_from_state(state["priv_key"])
+        if self._scan_mode:
+            if "device_sampler" in state:
+                self.device_sampler.set_state(state["device_sampler"])
+                self._data_seed = base_from_state(state["device_data_key"])
+            # the recorded draws are keyed by the old seeds
+            self._reset_scan()
+
+    # -- the client stores ---------------------------------------------------
+
+    def _store_families(self):
+        """The per-client row families as (name, host store) pairs, named
+        as the scanned engine's store dict keys them."""
+        fams = [("c_i", self.store)]
+        if self.residual_store is not None:
+            fams.append(("residual", self.residual_store))
+        if self.solver_store is not None:
+            fams.append(("solver", self.solver_store))
+        return fams
+
+    def _device_families(self):
+        """The device store as ``{family: rows}``."""
+        if len(self._store_families()) > 1:
+            return self.device_store
+        return {"c_i": self.device_store}
+
+    def client_store_device_bytes(self,
+                                  chunk_rounds: Optional[int] = None) -> int:
+        """Device-resident client-store bytes of this trainer's mode: the
+        full ``(N, ...)`` store in scanned mode, one gathered cohort under
+        the host loop. (``chunk_rounds`` is the reference's argument for
+        its tiered store, which the port has not.)"""
+        row = sum(st.row_nbytes for _, st in self._store_families())
+        if self._scan_mode:
+            return self.spec.num_clients * row
+        return self.spec.num_sampled * row * (self.pipeline_depth + 1)
+
+    def sync_host_store(self) -> None:
+        """Mirror the device store into the host stores (a checkpoint
+        reads those); a no-op outside scanned mode or when the mirror is
+        current."""
+        if self._scan_mode and self._host_store_dirty:
+            all_ids = np.arange(self.spec.num_clients)
+            rows = self._device_families()
+            for name, st in self._store_families():
+                st.scatter(all_ids, rows[name])
+            self._host_store_dirty = False
+
+    def push_host_store_to_device(self) -> None:
+        """Reload the device store from the host stores (after a
+        checkpoint restore scattered into them), in place: a captured
+        round keeps reading the same buffers."""
+        if self._scan_mode:
+            rows = self._device_families()
+            for name, st in self._store_families():
+                for k, v in rows[name].items():
+                    v.copy_(st.rows[k])
+            self._host_store_dirty = False
 
     # -- the synchronous round loop ----------------------------------------
 
+    # -- the scanned engine ---------------------------------------------------
+
+    def _setup_scan(self, seed: int) -> None:
+        dev, spec = self.device, self.spec
+        self.device_sampler = DeviceClientSampler(
+            spec.num_clients, spec.num_sampled, seed, device=dev)
+        self._data_seed = seed + 1
+        self._device_data = self.dataset.device_data(device=dev)
+        self._device_batch_fn = self.dataset.device_batch_fn(
+            spec.local_steps, spec.local_batch)
+        self._device_sizes = (
+            self.dataset.device_client_sizes(device=dev)
+            if spec.weighted_aggregation else None)
+        rows = {name: {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                       for k, v in st.rows.items()}
+                for name, st in self._store_families()}
+        self.device_store = rows if len(rows) > 1 else rows["c_i"]
+        self._host_store_dirty = False
+        priv = get_privatizer(spec.privatizer)
+        # whether a round is captured as a CUDA graph is decided here, from
+        # the static config, as megakernel_fallback_reason is
+        self.scan_graph_reason: Optional[str] = None
+        if dev.type != "cuda":
+            self.scan_graph_reason = f"device {dev}: CUDA graphs need the card"
+        elif priv.clips:
+            self.scan_graph_reason = (
+                f"privatizer {priv.name!r}: its exact clip reads the norm on "
+                f"the host")
+        self._stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self._reset_scan()
+
+    def _reset_scan(self) -> None:
+        """Forget the recorded draws, the metric buffers and the graph:
+        the next round records, warms up and captures again."""
+        self._ahead = DrawAhead(self.scan_rounds, self.device)
+        self._metrics_buf: Optional[Dict[str, torch.Tensor]] = None
+        self._graph = self._tally = self._captured = None
+        self._warm = False
+
+    @property
+    def scan_captured(self) -> bool:
+        """True when scanned rounds run as replays of a CUDA graph."""
+        return self._scan_mode and self.scan_graph_reason is None
+
+    def _scan_step(self, t: int) -> None:
+        """The scanned round ``t`` over the static buffers: the server
+        state (written back in place), the device store, the drawn-ahead
+        row at the slot; its tensor metrics go into the chunk's buffers
+        at the slot, which it then advances. What a graph captures."""
+        dev, ahead = self.device, self._ahead
+        with ahead.serving(t):
+            out = scan_round(
+                self._grad_fn, self.spec, self.server, self.device_store, t,
+                data=self._device_data, batch_fn=self._device_batch_fn,
+                sample_key=self.device_sampler.key,
+                data_key=stream_key(self._data_seed, dev),
+                comp_key=stream_key(self._comp_seed, dev),
+                priv_key=stream_key(self._priv_seed, dev),
+                sizes=self._device_sizes,
+                use_fused_update=self._use_fused_update)
+        _copy_into(_state_tree(self.server), _state_tree(out.server))
+        metrics = {k: v for k, v in out.metrics.items()
+                   if isinstance(v, torch.Tensor)}
+        if self._metrics_buf is None:
+            self._metrics_buf = {
+                k: torch.zeros(self.scan_rounds, dtype=torch.float32,
+                               device=dev) for k in metrics}
+        for k, buf in self._metrics_buf.items():
+            buf.index_copy_(0, ahead.slot, metrics[k].reshape(1).float())
+        ahead.slot.add_(1)
+
+    def _static_buffers(self):
+        """The tensors a captured round reads and writes in place."""
+        return _leaves({**_state_tree(self.server),
+                        "store": self._device_families()})
+
+    def _run_step(self, t: int) -> None:
+        """One scanned round: eager off the card or when its control flow
+        needs the host; else a warm-up round on a side stream, then the
+        round captured once as a CUDA graph, then its replays."""
+        if self.scan_graph_reason is not None:
+            self._scan_step(t)
+            return
+        if self._graph is None and not self._warm:
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self._stream):
+                self._scan_step(t)
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
+            self._warm = True
+            return
+        if self._graph is None:
+            graph = torch.cuda.CUDAGraph()
+            with counts.recording() as tally, torch.cuda.graph(
+                    graph, stream=self._stream):
+                self._scan_step(t)
+            self._graph, self._tally = graph, tally
+            self._captured = self._static_buffers()
+        self._graph.replay()
+        self._tally.replayed()
+
+    def _check_static(self) -> None:
+        """Drop the graph when a buffer it captured was replaced (a
+        checkpoint restore or a setter swaps the server state's tensors):
+        the next round warms up and captures again."""
+        if self._graph is None:
+            return
+        now = self._static_buffers()
+        if len(now) != len(self._captured) or any(
+                a is not b for a, b in zip(now, self._captured)):
+            self._graph = self._tally = self._captured = None
+            self._warm = False
+
+    def _run_scan_chunk(self, R: int):
+        """R rounds through the scanned engine; returns their metric dicts
+        (also appended to ``history``). The first round a trainer runs
+        records its draws; later rounds are drawn ahead a piece of up to
+        the buffers' capacity at a time."""
+        self._check_static()
+        ahead, out, done = self._ahead, [], 0
+        while done < R:
+            t0 = self.round_idx
+            if ahead.recorded:
+                n = min(R - done, ahead.capacity)
+                ahead.fill(t0, n)
+            else:
+                n = 1
+            ahead.slot.zero_()
+            for r in range(n):
+                self._run_step(t0 + r)
+            if not ahead.bufs:
+                per_round = max(1, ahead.round_bytes())
+                ahead.allocate(max(1, min(self.scan_rounds,
+                                          DRAW_AHEAD_BYTES // per_round)))
+            names = list(self._metrics_buf)
+            vals = torch.stack([self._metrics_buf[k][:n]
+                                for k in names]).cpu().tolist()
+            for r in range(n):
+                m = {k: vals[i][r] for i, k in enumerate(names)}
+                out.append(self._record(m))
+            done += n
+        self._host_store_dirty = True
+        return out
+
+    def _record(self, m: Dict[str, Any]) -> Dict[str, Any]:
+        """Finish a round's metrics on the host (exact byte counts, the
+        float64 accountant, the reasons), advance the round counter, and
+        append them to ``history``."""
+        self.round_idx += 1
+        m.update(self._comm_bytes)
+        if self.spec.privatizer != "none":
+            m["dp_epsilon"] = get_privatizer(self.spec.privatizer).epsilon(
+                self.spec, self.round_idx)
+        if self.megakernel_fallback_reason is not None:
+            m["megakernel_fallback_reason"] = self.megakernel_fallback_reason
+        if self.update_space.trains_subset:
+            m["update_space"] = self.update_space.name
+        m["round"] = self.round_idx
+        self.history.append(m)
+        return m
+
     def run_round(self) -> Dict[str, Any]:
         """Sample, gather, load, run one round, scatter; returns the
-        round's metrics (also appended to ``history``)."""
+        round's metrics (also appended to ``history``). In scanned mode, a
+        chunk of one round: the same bits as any larger chunk."""
+        if self._scan_mode:
+            return self._run_scan_chunk(1)[0]
         ids = self.sampler.sample()
         c_i = self.store.gather(ids)
         res = (None if self.residual_store is None
@@ -296,36 +622,42 @@ class FederatedTrainer:
             self.residual_store.scatter(ids, out.clients.uplink_residual)
         if self.solver_store is not None:
             self.solver_store.scatter(ids, out.clients.solver_slots)
-        self.round_idx += 1
-        m = {k: float(v) for k, v in out.metrics.items()}
-        m.update(self._comm_bytes)
-        if self.megakernel_fallback_reason is not None:
-            m["megakernel_fallback_reason"] = self.megakernel_fallback_reason
-        if self.update_space.trains_subset:
-            m["update_space"] = self.update_space.name
-        m["round"] = self.round_idx
-        self.history.append(m)
-        return m
+        return self._record({k: float(v) for k, v in out.metrics.items()})
 
     def run(self, rounds: int, *, eval_fn: Optional[Callable] = None,
             eval_every: int = 0, target_metric: Optional[float] = None,
             metric_name: str = "accuracy", verbose: bool = False):
         """Run rounds; with ``target_metric``, stop once
-        ``eval_fn(x)[metric_name] >= target`` and return the rounds used."""
-        for r in range(rounds):
-            m = self.run_round()
-            if eval_fn is not None and eval_every and (r + 1) % eval_every == 0:
+        ``eval_fn(x)[metric_name] >= target`` and return the rounds used.
+
+        In scanned mode the rounds run in chunks of up to
+        ``scan_rounds``, the chunk ends aligned to ``eval_every`` so the
+        eval and early-stop schedule is the host loop's."""
+        done = 0
+        while done < rounds:
+            chunk = 1
+            if self._scan_mode:
+                chunk = min(self.scan_rounds, rounds - done)
+                if eval_fn is not None and eval_every:
+                    chunk = min(chunk, eval_every - done % eval_every)
+                m = self._run_scan_chunk(chunk)[-1]
+            else:
+                m = self.run_round()
+            done += chunk
+            if eval_fn is not None and eval_every and done % eval_every == 0:
                 em = eval_fn(self.eval_params())
                 m.update(em)
                 if verbose:
-                    print(f"round {r+1}: {m}")
+                    print(f"round {done}: {m}")
                 if (target_metric is not None
                         and em[metric_name] >= target_metric):
-                    return r + 1
+                    return done
         return rounds
 
     def close(self) -> None:
-        """Release the host stores."""
+        """Release the host stores (and a captured round's graph)."""
+        if self._scan_mode:
+            self._graph = self._tally = self._captured = None
         self.store.close()
         if self.residual_store is not None:
             self.residual_store.close()

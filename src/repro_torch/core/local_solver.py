@@ -17,7 +17,7 @@ over explicit slots,
                  ``v`` and a step counter ``t``, persisted per client. No
                  kernel: ``use_fused_update`` takes the plain path.
   ``sgd_sched``  sgd with a per-local-step eta table
-                 (``optim.schedules.local_eta_table``), rebuilt every
+                 (``optim.schedules.local_eta_table``), the same every
                  round. Its per-step path is plain; the K-step kernel
                  takes the table.
 
@@ -36,6 +36,7 @@ client and slot instead of one per step).
 """
 from __future__ import annotations
 
+import functools
 import types
 from typing import Any, Callable, Dict, Tuple
 
@@ -171,6 +172,15 @@ class AdamSolver(LocalSolver):
         return y, slots
 
 
+@functools.lru_cache(maxsize=64)
+def _eta_table(schedule: str, eta_l: float, k_steps: int, device):
+    """The ``(K,)`` fp32 eta table on ``device``, made once and shared
+    (read only): a round captured as a CUDA graph copies nothing from the
+    host."""
+    return torch.tensor(local_eta_table(schedule, eta_l, k_steps),
+                        dtype=torch.float32, device=device)
+
+
 class ScheduledSGDSolver(LocalSolver):
     """sgd with a per-local-step eta_l schedule: the K values of
     ``spec.eta_l_schedule`` (``optim.schedules.local_eta_table``) are a
@@ -182,10 +192,9 @@ class ScheduledSGDSolver(LocalSolver):
     megakernel = True
 
     def init(self, spec, x):
-        table = local_eta_table(spec.eta_l_schedule or "constant",
-                                spec.eta_l, spec.local_steps)
         dev = next(iter(x.values())).device
-        return {"eta": torch.tensor(table, dtype=torch.float32, device=dev)}
+        return {"eta": _eta_table(spec.eta_l_schedule or "constant",
+                                  float(spec.eta_l), spec.local_steps, dev)}
 
     def check_steps(self, spec, slots, k_steps: int) -> None:
         # the table is sized by spec.local_steps; a longer loop would read

@@ -14,7 +14,9 @@ differs is the aggregation, which follows the reference exactly:
 Each client's ``c_i``, residual and solver-slot rows move to the model's
 device only while that client runs, and its new rows go straight back
 over its input rows, so the device holds one client's state at a time
-and the host one copy of the cohort's.
+and the host one copy of the cohort's. Nothing in a round reads a value
+back to the host but the privatizer's exact clip, so the scanned engine
+can capture a round as a CUDA graph (``core.controller``).
 
 Compression and privacy follow the reference's order. The downlink codec
 transforms the broadcast ``(x, c)``; the clients start from what they
@@ -108,7 +110,8 @@ def _whole_batch_round(grad_fn, spec, server, clients, batches) -> RoundOutput:
                      server.x, grads)
     out_metrics = {
         "loss": metrics["loss"],
-        "drift": torch.zeros((), dtype=torch.float32),
+        "drift": torch.zeros((), dtype=torch.float32,
+                             device=metrics["loss"].device),
         "update_norm": tree_norm(tree_sub(x_new, server.x)),
         **round_comm_bytes(spec, server.x, stateful_clients=False),
     }
@@ -116,9 +119,10 @@ def _whole_batch_round(grad_fn, spec, server, clients, batches) -> RoundOutput:
                        clients=clients, metrics=out_metrics)
 
 
-def _accumulate(acc, w: float, d) -> None:
+def _accumulate(acc, w, d) -> None:
     """``acc += w * d`` leafwise in place, computed in fp32 and rounded
-    once to acc's dtype (a chunk of elements at a time)."""
+    once to acc's dtype (a chunk of elements at a time); ``w`` a float or
+    an fp32 0-d tensor."""
     for k, a in acc.items():
         af, df = a.view(-1), d[k].reshape(-1)
         for s in range(0, af.numel(), _CHUNK):
@@ -215,8 +219,10 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
     fresh_slots = slots_all is None  # every client starts from solver.init
     res_all = clients.uplink_residual
     if weights is not None:
+        # the normalised weights stay tensors (0-d fp32 a client): no
+        # host round trip inside a round
         wnorm = weights.float()
-        wnorm = (wnorm / torch.clamp(wnorm.sum(), min=1e-12)).tolist()
+        wnorm = list((wnorm / torch.clamp(wnorm.sum(), min=1e-12)).unbind())
 
     parallel = spec.strategy == "client_parallel"
     if parallel:
@@ -301,8 +307,7 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
     if privatizing:
         metrics["dp_epsilon"] = priv.epsilon(spec, dp_round + 1)
         if clip_flags:
-            metrics["dp_clipped_frac"] = torch.stack(
-                [f.cpu() for f in clip_flags]).mean()
+            metrics["dp_clipped_frac"] = torch.stack(clip_flags).mean()
     return RoundOutput(
         server=ServerState(x=x_new, c=c_new, opt_state=opt_state_new),
         clients=ClientRoundState(c_i=c_i_all, uplink_residual=res_all,

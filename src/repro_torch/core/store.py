@@ -12,7 +12,6 @@ store are not ported yet.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.core.tree import tree_gather, tree_scatter
@@ -36,13 +35,14 @@ class ClientStateStore:
         self.row_nbytes = sum(v.numel() * v.element_size()
                               for v in template.values())
 
-    def gather(self, ids: np.ndarray):
-        """Rows ``ids`` as a dict of owned host ``(len(ids), ...)`` tensors."""
-        return tree_gather(self._rows, np.asarray(ids))
+    def gather(self, ids):
+        """Rows ``ids`` (an array, a list or a tensor on any device) as a
+        dict of owned host ``(len(ids), ...)`` tensors."""
+        return tree_gather(self._rows, ids)
 
-    def scatter(self, ids: np.ndarray, new) -> None:
+    def scatter(self, ids, new) -> None:
         """Write rows ``ids`` (values are copied in, from any device)."""
-        tree_scatter(self._rows, np.asarray(ids), new)
+        tree_scatter(self._rows, ids, new)
 
     @property
     def rows(self):

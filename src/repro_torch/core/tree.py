@@ -65,20 +65,28 @@ def tree_norm(a: Tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
+def _index(ids, device) -> torch.Tensor:
+    """Row ids as an int64 tensor on ``device`` (the tensor itself when
+    it already is one there)."""
+    return torch.as_tensor(ids, dtype=torch.long).to(device)
+
+
 def tree_gather(store: Tree, ids) -> Tree:
-    """Rows ``ids`` of a stacked store: (N, ...) leaves -> (S, ...)."""
-    idx = torch.as_tensor(ids, dtype=torch.long)
-    return tree_map(lambda leaf: leaf[idx.to(leaf.device)], store)
+    """Rows ``ids`` of a stacked store: (N, ...) leaves -> (S, ...)
+    (``index_select``: fresh rows the caller owns)."""
+    return {k: leaf.index_select(0, _index(ids, leaf.device))
+            for k, leaf in store.items()}
 
 
 def tree_scatter(store: Tree, ids, new: Tree) -> Tree:
-    """Write (S, ...) leaves back into rows ``ids`` of a (N, ...) store.
+    """Write (S, ...) leaves back into rows ``ids`` of a (N, ...) store
+    (``index_copy_``; ``ids`` distinct).
 
     Updates ``store`` in place (the JAX version returns a new store;
     under a donated jit it too writes in place) and returns it."""
-    idx = torch.as_tensor(ids, dtype=torch.long)
     for k, leaf in store.items():
-        leaf[idx.to(leaf.device)] = new[k].to(leaf.device, leaf.dtype)
+        leaf.index_copy_(0, _index(ids, leaf.device),
+                         new[k].to(leaf.device, leaf.dtype))
     return store
 
 

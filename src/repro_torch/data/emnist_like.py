@@ -6,6 +6,13 @@ A 62-class 28x28 task is generated with numpy (class prototypes in two
 by the protocol of the paper and Hsu et al. (2019): at s% similarity
 each client gets s% i.i.d. data and the rest sorted by label. The same
 seed gives the same data, split and batches as the JAX package.
+
+The scanned engine's device protocol keeps the pool and a padded
+``(N, max_shard)`` shard-index table on the device; a round's batch is
+two chained gathers (shard row, then pool row) at uniform positions
+drawn with replacement from the round's data key, as the reference's
+``device_batch_fn`` draws them (its host path draws without replacement
+where a shard is large enough: another, equally uniform stream).
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import streams
 from repro_torch.device import resolve_device
 
 NUM_CLASSES = 62
@@ -105,6 +113,40 @@ class EmnistLikeFederated:
     def client_sizes(self, ids: np.ndarray) -> np.ndarray:
         """Per-client dataset sizes (paper §2 weighted aggregation)."""
         return np.asarray([len(self.shards[i]) for i in ids], np.int64)
+
+    def device_data(self, device="cuda") -> Dict:
+        """The pool (``"x"`` fp32, ``"y"`` int32), the shard-index table
+        (``"shard_idx"``, each shard repeated to the longest, as
+        ``np.resize`` pads) and ``"shard_len"`` (int64), on ``device``."""
+        dev = resolve_device(device)
+        lens = np.asarray([len(s) for s in self.shards], np.int64)
+        idx = np.stack([np.resize(s, int(lens.max())) for s in self.shards])
+        px, py = self._device_pool(dev)
+        return {"x": px, "y": py,
+                "shard_idx": torch.from_numpy(idx.astype(np.int64)).to(dev),
+                "shard_len": torch.from_numpy(lens).to(dev)}
+
+    def device_batch_fn(self, K: int, b: int):
+        """``batch_fn(data, ids, key)``: ``{"x": (S, K, b, 784), "y": (S,
+        K, b)}``, client i's rows at positions ``floor(u * len_i)`` of its
+        shard (at most ``len_i - 1``), u uniform at ``key``."""
+
+        def batch_fn(data, ids, key):
+            s = ids.shape[0]
+            u = streams.uniform(key, (s, K, b))
+            lens = data["shard_len"].index_select(0, ids)[:, None, None]
+            pos = torch.minimum(torch.floor(u * lens.float()).long(),
+                                lens - 1)
+            take = data["shard_idx"][ids[:, None, None], pos]
+            return {"x": data["x"][take], "y": data["y"][take]}
+
+        return batch_fn
+
+    def device_client_sizes(self, device="cuda"):
+        """Per-client dataset sizes, ``(N,)`` fp32 on ``device``."""
+        return torch.tensor([float(len(s)) for s in self.shards],
+                            dtype=torch.float32,
+                            device=resolve_device(device))
 
     def local_batch_size(self, batch_frac: float = 0.2) -> int:
         sizes = [len(s) for s in self.shards]

@@ -5,6 +5,12 @@ Clients minimise f_i(x) = 1/2 x^T A_i x + b_i^T x. Everything is built
 with numpy from the seed, so the same seed gives the same ``A`` and ``b``
 as the JAX package. Batches carry the owning client's (A_i, b_i); σ=0
 (full batch) as in §7.2.
+
+The scanned engine's device protocol (``device_data``,
+``device_batch_fn``, ``device_client_sizes``) keeps every client's
+``(A_i, b_i)`` on the device; a round's batch is a gather of the
+cohort's rows broadcast over (K, b), as the host path builds it. The
+data key is unused: σ=0 clients draw nothing.
 """
 from __future__ import annotations
 
@@ -77,6 +83,34 @@ class QuadraticDataset:
     def client_sizes(self, ids: np.ndarray) -> np.ndarray:
         """Uniform: each simulated client owns one full objective."""
         return np.ones(len(ids), np.int64)
+
+    def device_data(self, device="cuda") -> Dict:
+        """``{"A": (N, d, d), "b": (N, d)}`` fp32 on ``device``."""
+        dev = resolve_device(device)
+        return {"A": torch.from_numpy(self.A).to(dev),
+                "b": torch.from_numpy(self.b).to(dev)}
+
+    def device_batch_fn(self, K: int, b: int):
+        """``batch_fn(data, ids, key)``: the cohort's rows of ``data``
+        broadcast to ``{"A": (S, K, b, d, d), "b": (S, K, b, d)}``."""
+        d = self.dim
+
+        def batch_fn(data, ids, key):
+            del key  # full-batch clients: no stochastic data draw
+            s = ids.shape[0]
+            return {
+                "A": data["A"].index_select(0, ids)[:, None, None].expand(
+                    s, K, b, d, d),
+                "b": data["b"].index_select(0, ids)[:, None, None].expand(
+                    s, K, b, d),
+            }
+
+        return batch_fn
+
+    def device_client_sizes(self, device="cuda"):
+        """``(N,)`` fp32 ones on ``device``."""
+        return torch.ones(self.num_clients, dtype=torch.float32,
+                          device=resolve_device(device))
 
     def f(self, x) -> float:
         x = _numpy(x)

@@ -4,8 +4,14 @@ JAX package's ``data/synthetic_lm.py``, its numpy host path).
 Each client draws tokens from a client-specific unigram mixture: a shared
 zipf background blended with a client-private vocabulary slab, plus an
 every-other-token ``prev + shift`` structure. The draws are numpy from
-the caller's generator, so both packages see the same tokens. The
-scanned engine's device batch function is not ported yet.
+the caller's generator, so both packages see the same tokens.
+
+The scanned engine's device protocol resamples the mixture on the
+device, as the reference's does: the zipf background a categorical over
+its log-probabilities, the private slab a uniform offset inside
+``[start_i, start_i + len_i)``, then the same ``prev + shift`` rewrite.
+Its three draws are at ``key.fold_in(0)``, ``(1)`` and ``(2)``, where
+the reference splits the round's data key in three.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core import streams
 from repro_torch.device import resolve_device
 
 
@@ -63,6 +70,51 @@ class SyntheticLMFederated:
     def client_sizes(self, ids: np.ndarray) -> np.ndarray:
         """Vocabulary-slab sizes stand in for dataset sizes."""
         return np.asarray([len(self.slices[i]) for i in ids], np.int64)
+
+    def device_data(self, device="cuda") -> Dict:
+        """The background's fp32 log-probabilities and each client's slab
+        start, slab length and shift (int64), on ``device``."""
+        dev = resolve_device(device)
+        long = lambda v: torch.tensor(np.asarray(v, np.int64),  # noqa: E731
+                                      device=dev)
+        return {
+            "log_bg": torch.log(torch.from_numpy(
+                self.background.astype(np.float32))).to(dev),
+            "slab_start": long([s[0] for s in self.slices]),
+            "slab_len": long([len(s) for s in self.slices]),
+            "shifts": long(self.shifts),
+        }
+
+    def device_batch_fn(self, K: int, b: int):
+        """``batch_fn(data, ids, key)``: ``{"tokens", "labels"}``, each
+        (S, K, b, seq_len) int64."""
+        L = self.seq_len + 1
+        het, V = self.heterogeneity, self.vocab_size
+
+        def batch_fn(data, ids, key):
+            shape = (ids.shape[0], K, b, L)
+            use_private = streams.uniform(key.fold_in(0), shape) < het
+            slab_len = data["slab_len"][ids][:, None, None, None]
+            u = streams.uniform(key.fold_in(1), shape)
+            off = torch.minimum(torch.floor(u * slab_len.float()).long(),
+                                slab_len - 1)
+            private = data["slab_start"][ids][:, None, None, None] + off
+            shared = streams.categorical(key.fold_in(2), data["log_bg"],
+                                         shape)
+            toks = torch.where(use_private, private, shared)
+            # every other token repeats prev + shift, as _client_sample
+            n_odd = toks[..., 1::2].shape[-1]
+            shift = data["shifts"][ids][:, None, None, None]
+            toks[..., 1::2] = (toks[..., 0::2][..., :n_odd] + shift) % V
+            return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+
+        return batch_fn
+
+    def device_client_sizes(self, device="cuda"):
+        """Vocabulary-slab sizes, ``(N,)`` fp32 on ``device``."""
+        return torch.tensor([float(len(s)) for s in self.slices],
+                            dtype=torch.float32,
+                            device=resolve_device(device))
 
     def eval_batch(self, batch_size: int, rng, device="cuda") -> Dict:
         """I.i.d. mixture batch for global-model eval."""

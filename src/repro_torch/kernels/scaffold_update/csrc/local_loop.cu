@@ -22,7 +22,9 @@
 // is its K grid barriers: step k+1 needs all of y_k.
 //
 // Design: a cooperative grid over the card. G persistent blocks (at most
-// one an SM, launched with cudaLaunchCooperativeKernel, all co-resident)
+// one an SM, all co-resident: a cudaLaunchKernelEx launch with the
+// cooperative attribute, which a stream capture records as a cooperative
+// graph node, so a CUDA graph can replay it)
 // each own R consecutive entries I_b of y and hold both slabs that give
 // their entries of g alone:
 //     row slab     Am[I_b, :]   ->  (Am y)_I
@@ -53,6 +55,9 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <mutex>
+#include <vector>
 
 namespace cg = cooperative_groups;
 
@@ -281,25 +286,77 @@ __global__ void __launch_bounds__(kThreads, 1) barrier_kernel(int K) {
 // cannot be co-resident (CUDA's own error codes are all >= 0).
 constexpr int kNotCoResident = -1;
 
-// Set the kernel's dynamic shared memory limit to smem bytes and check
-// that `blocks` of it fit on the card at once (a cooperative launch needs
-// all of them co-resident). Returns a CUDA error code or kNotCoResident.
+// What a device has been told about each kernel: the largest dynamic
+// shared memory it was allowed (the attribute only caps a launch's own
+// request, so it is raised, never lowered), and for each shared memory
+// size the blocks of it the card holds at once.
+struct SmemLimit {
+  int dev;
+  const void* kern;
+  size_t smem;
+};
+struct Capacity {
+  int dev;
+  const void* kern;
+  size_t smem;
+  long long blocks;
+};
+std::mutex prepared_mutex;
+std::vector<SmemLimit> limits;
+std::vector<Capacity> capacities;
+
+// Allow the kernel `smem` bytes of dynamic shared memory and check that
+// `blocks` of it fit on the card at once (a cooperative launch needs all
+// of them co-resident). The attribute and the occupancy query run at the
+// first launch that needs them only, so a launch that a CUDA graph
+// captures after a warm-up makes neither call. Returns a CUDA error code
+// or kNotCoResident.
 int prepare(const void* kern, size_t smem, int blocks) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return (int)err;
+  std::lock_guard<std::mutex> lock(prepared_mutex);
+  SmemLimit* limit = nullptr;
+  for (SmemLimit& l : limits)
+    if (l.dev == dev && l.kern == kern) limit = &l;
+  if (limit == nullptr || limit->smem < smem) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (limit == nullptr) limits.push_back({dev, kern, smem});
+    else limit->smem = smem;
+  }
+  for (const Capacity& c : capacities)
+    if (c.dev == dev && c.kern == kern && c.smem == smem)
+      return c.blocks < blocks ? kNotCoResident : 0;
+  int coop = 0, sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
                                                         smem);
   if (err != cudaSuccess) return (int)err;
+  capacities.push_back({dev, kern, smem, (long long)per_sm * sms});
   return (long long)per_sm * sms < blocks ? kNotCoResident : 0;
+}
+
+// One cooperative launch of `grid` blocks of kThreads, through
+// cudaLaunchKernelEx with the cooperative attribute.
+cudaError_t launch_cooperative(const void* kern, int grid, size_t smem,
+                               void** args, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelExC(&cfg, kern, args);
 }
 
 template <typename T> struct Tag { using type = T; };
@@ -371,9 +428,8 @@ extern "C" int local_loop(int ty, int tc, int ta, int tb, const void* y0,
                           &a_sb,   &a_b,    &b_sk,    &b_sb,    &a_eta,
                           &beta,   &a_yout, &a_mout,  &a_losses, &a_ybuf,
                           &a_part, &K,      &bsz,     &d,       const_cast<Plan*>(&plan)};
-          err = (int)cudaLaunchCooperativeKernel(
-              reinterpret_cast<const void*>(kern), dim3(grid), dim3(kThreads),
-              args, (size_t)smem, s);
+          err = (int)launch_cooperative(reinterpret_cast<const void*>(kern),
+                                        grid, (size_t)smem, args, s);
         });
       });
     });
@@ -392,9 +448,8 @@ extern "C" int local_loop_barrier_floor(int grid, int K, long long smem,
   const int err = prepare(kern, (size_t)smem, grid);
   if (err != 0) return err;
   void* args[] = {&K};
-  const cudaError_t launch = cudaLaunchCooperativeKernel(
-      kern, dim3(grid), dim3(kThreads), args, (size_t)smem,
-      static_cast<cudaStream_t>(stream));
+  const cudaError_t launch = launch_cooperative(
+      kern, grid, (size_t)smem, args, static_cast<cudaStream_t>(stream));
   if (launch != cudaSuccess) return (int)launch;
   return (int)cudaGetLastError();
 }

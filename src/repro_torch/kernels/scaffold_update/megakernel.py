@@ -20,7 +20,10 @@ For tensors on the CPU it runs the plain version
 ``run_local_steps``); for CUDA tensors it launches the kernel or raises.
 Launches count in ``ops.LAUNCHES["scaffold_local_loop"]`` (B3) and
 ``ops.LAUNCHES["scaffold_momentum_local_loop"]`` (B4); ``PLANS`` counts
-the plans they launched with.
+the plans they launched with; a launch captured in a CUDA graph counts
+at each replay (``kernels.counts``). The cooperative launch goes through
+``cudaLaunchKernelEx`` with the cooperative attribute, which a stream
+capture records as a graph node.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.device import check_on, resolve_device
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts
 from repro_torch.kernels.scaffold_update import ref
 from repro_torch.kernels.scaffold_update.ops import LAUNCHES
 
@@ -222,8 +225,8 @@ def scaffold_local_loop_cuda(y, corr, eta_table, A, b, *, m=None,
     name = ("scaffold_local_loop" if m is None
             else "scaffold_momentum_local_loop")
     _check_launch(err, name, plan)
-    LAUNCHES[name] += 1
-    PLANS[name][plan] += 1
+    counts.count(LAUNCHES, name)
+    counts.count(PLANS[name], plan)
     return y_out, m_out, losses
 
 

@@ -32,6 +32,10 @@ elsewhere. For tensors on the CPU it runs the plain version (``ref.py``);
 for CUDA tensors it launches the kernel or raises. ``LAUNCHES`` counts the
 kernel launches of this process, by kernel name; a wrapper adds one where
 it launches, nowhere else (a group with no element launches nothing).
+A launch captured in a CUDA graph counts once at each replay
+(``kernels.counts``). The launch reads the tree's pointers, ``eta`` and
+``beta`` by value, so a captured launch keeps them: the trainer captures
+a round over static buffers and a constant ``eta_l``.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.device import check_on, resolve_device
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts
 from repro_torch.kernels.scaffold_update import ref
 
 LAUNCHES: Dict[str, int] = {
@@ -264,7 +268,7 @@ def _launch(kernel, grp: _Group, ptrs, eta: float, beta: float) -> None:
             err = fn(grp.args.buffer_info()[0], table.buffer_info()[0], eta,
                      beta, torch._C._cuda_getCurrentRawStream(grp.device))
     build.check(err, kernel)
-    LAUNCHES[kernel] += 1
+    counts.count(LAUNCHES, kernel)
 
 
 def _packed(name, y, g, corr, out, eta: float, m=None, m_out=None,

@@ -20,7 +20,11 @@ and strides that are multiples of 16 bytes; fp32 runs the CUDA-core body.
 Anything else raises, as does a failed build or launch: on the card
 nothing falls back to the plain version or to the other body.
 ``LAUNCHES`` counts the kernel launches of this process; the CUDA
-wrapper adds one where it launches, nowhere else.
+wrapper adds one where it launches, nowhere else, and a launch captured
+in a CUDA graph once at each replay (``kernels.counts``). The bf16
+body's TMA descriptors are built on the host from the tensors'
+addresses and passed by value: a captured launch reads the same
+addresses at every replay, which the graph's memory pool keeps.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts
 from repro_torch.kernels.swa_attention import ref
 
 LAUNCHES: Dict[str, int] = {"swa_attention": 0}
@@ -113,7 +117,7 @@ def swa_attention_cuda(q, k, v, window: int):
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  ctypes.addressof(strides), 1.0 / math.sqrt(d), stream)
     build.check(err, "swa_attention")
-    LAUNCHES["swa_attention"] += 1
+    counts.count(LAUNCHES, "swa_attention")
     return o
 
 

@@ -9,11 +9,18 @@ llama3.2-3b at its published widths:
       --preset full --update-space lora --lora-rank 8 --rounds 3 \\
       --clients 4 --sampled 2 --local-steps 2 --local-batch 1
 
-The flags of the engines the port has not yet (``--pipeline-depth``,
-``--scan-rounds``, ``--async-buffer`` and its availability and staleness
-flags, ``--store tiered``, a ``--store-backend`` other than dense) are
-accepted as the reference's are, and raise ``NotImplementedError`` when
-set.
+``--scan-rounds R`` runs the scanned engine in chunks of up to R rounds
+(on the card each round a replay of one captured CUDA graph):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
+      --rounds 8 --log-every 4 --scan-rounds 4 --clients 8 --sampled 2 \
+      --local-steps 2 --local-batch 1 --seq-len 64
+
+The flags of the engines the port has not yet (``--pipeline-depth``
+without ``--scan-rounds``, ``--async-buffer`` and its availability and
+staleness flags, ``--store tiered``, a ``--store-backend`` other than
+dense) are accepted as the reference's are, and raise
+``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -131,9 +138,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--clip-norm", type=float, default=0.0)
     ap.add_argument("--noise-multiplier", type=float, default=0.0)
     ap.add_argument("--dp-delta", type=float, default=1e-5)
+    ap.add_argument("--scan-rounds", type=int, default=0,
+                    help="scanned-engine chunk size: run rounds on the device "
+                         "in chunks of up to this many (0 = host loop)")
     # engines not ported yet
     ap.add_argument("--pipeline-depth", type=int, default=0)
-    ap.add_argument("--scan-rounds", type=int, default=0)
     ap.add_argument("--store", default="dense", choices=["dense", "tiered"])
     ap.add_argument("--store-backend", default="")
     ap.add_argument("--prefetch-depth", type=int, default=2)
@@ -241,6 +250,9 @@ def main(argv=None):
               f"{n_train/1e6:.3f}M trainable of {n_params/1e6:.1f}M "
               f"({n_params/max(n_train, 1):.0f}x fewer), per-round "
               f"up={trainer._comm_bytes['bytes_up']/1e6:.2f}MB")
+    if trainer.scan_active:
+        print(f"scanned engine: on-device chunks of <= {args.scan_rounds} "
+              f"rounds")
     if args.privatizer != "none":
         eps = get_privatizer(args.privatizer).epsilon(spec, args.rounds)
         print(f"privatizer: {args.privatizer} clip={args.clip_norm} "

@@ -79,8 +79,8 @@ def _embed(cfg, params, tokens):
     if cfg.scale_embeddings:
         # the reference rounds sqrt(d_model) to the table's dtype first
         # (bf16: sqrt(1152) = 33.94 -> 34.0)
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
+                           device=x.device)
     return x.to(_dtype(cfg.compute_dtype))
 
 

@@ -14,7 +14,10 @@ absolute, in bf16 to 1 bf16 ulp of the plain element plus 2e-5 (both
 round an fp32 result once; the fp32 results differ by the order of their
 sums, which exceeds an ulp only below 2^-8). B1 and B2 also run on a
 LoRA delta tree as the trainer stacks it, and a bf16 checkpoint
-round-trips on the card bitwise.
+round-trips on the card bitwise. The scanned engine's rounds, captured
+as CUDA graphs around B1-B5, equal the eager host loop on the same
+device streams (bitwise; the W layer within 1e-4), and the launch counts
+follow the graph's replays.
 """
 import math
 import sys
@@ -688,3 +691,138 @@ def test_bf16_checkpoint_round_trips_on_the_card(tmp_path):
         assert a.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), k
     assert int(back["t"]) == 3
+
+
+# the scanned engine: each round one replay of a captured CUDA graph
+
+
+def _scan_quads():
+    from repro_torch.data import make_similarity_quadratics
+
+    return make_similarity_quadratics(10, 64, delta=0.3, G=4.0, mu=0.3,
+                                      seed=1)
+
+
+def _scan_case(case):
+    """(spec, dataset, loss_fn, init) of a captured-round check."""
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.data import EmnistLikeFederated, quadratic_loss
+    from repro_torch.models import simple
+
+    if case.startswith("mlp"):
+        data = EmnistLikeFederated(10, 2000, 10.0, seed=0, test_samples=100)
+        spec = FedRoundSpec(
+            algorithm="scaffold", num_clients=10, num_sampled=4,
+            local_steps=5, local_batch=data.local_batch_size(0.2),
+            eta_l=0.3, **({"local_solver": "momentum"}
+                          if case == "mlp heavy-ball" else {}))
+        return spec, data, simple.mlp_loss, lambda gen: simple.mlp_init(
+            gen, 784, 62, device=gen.device)
+    spec = FedRoundSpec(algorithm="scaffold", num_clients=10, num_sampled=3,
+                        local_steps=4, local_batch=1, eta_l=0.05,
+                        use_megakernel=case == "quadratics B3")
+    ds = _scan_quads()
+    return spec, ds, quadratic_loss, lambda gen: {"x": torch.ones(ds.dim)}
+
+
+@pytest.mark.parametrize("case", ["quadratics B1", "quadratics B3", "mlp",
+                                  "mlp heavy-ball"])
+def test_captured_rounds_equal_the_eager_host_loop(case):
+    """A scanned trainer on the card (a warm-up round, then each round a
+    replay of its captured graph) equals the eager per-round host loop on
+    the same device streams bitwise: x, c and every store row."""
+    from chip_smoke import host_loop_device_rng, scanned_vs_host_loop
+    from repro_torch.core import FederatedTrainer
+
+    spec, ds, loss_fn, init = _scan_case(case)
+    tr = FederatedTrainer(loss_fn, init, spec, ds, seed=0,
+                          use_fused_update=True, device="cuda",
+                          scan_rounds=2)
+    assert tr.scan_captured and tr.scan_graph_reason is None
+    tr.run(4)
+    assert tr._graph is not None
+    server, rows, hist = host_loop_device_rng(spec, ds, 4, loss_fn, init)
+    cmp = scanned_vs_host_loop(tr, server, rows)
+    assert cmp["apart"] == 0, cmp
+    assert [h["loss"] for h in tr.history] == [h["loss"] for h in hist]
+
+
+@pytest.mark.parametrize("case,key,per_round", [
+    ("quadratics B1", "scaffold_update", 3 * 4),
+    ("quadratics B3", "scaffold_local_loop", 3),
+    ("mlp heavy-ball", "scaffold_momentum_update", 4 * 5),
+])
+def test_launch_counts_follow_graph_replays(case, key, per_round):
+    """After the warm-up round, 3 rounds (a capture and its replay, then
+    two replays) count 3 x the round's launches: the graph's tally is
+    added at each replay."""
+    from repro_torch.core import FederatedTrainer
+
+    spec, ds, loss_fn, init = _scan_case(case)
+    tr = FederatedTrainer(loss_fn, init, spec, ds, seed=0,
+                          use_fused_update=True, device="cuda",
+                          scan_rounds=3)
+    tr.run_round()
+    assert tr._graph is None
+    ops.reset_launches()
+    mk.reset_plans()
+    tr.run(3)
+    assert tr._tally.launches()[key] == per_round
+    assert ops.LAUNCHES[key] == 3 * per_round
+    assert sum(ops.LAUNCHES.values()) == 3 * per_round
+    if key in mk.PLANS:
+        assert sum(mk.PLANS[key].values()) == 3 * per_round
+
+
+def test_privatized_scanned_rounds_run_uncaptured_on_the_card():
+    """The exact clip reads the norm on the host: its scanned rounds run
+    eagerly on the card with the reason given, equal to the host loop."""
+    import dataclasses
+
+    from chip_smoke import host_loop_device_rng, scanned_vs_host_loop
+    from repro_torch.core import FederatedTrainer
+
+    spec, ds, loss_fn, init = _scan_case("quadratics B1")
+    spec = dataclasses.replace(spec, privatizer="server_gauss",
+                               clip_norm=0.5, noise_multiplier=1.1)
+    tr = FederatedTrainer(loss_fn, init, spec, ds, seed=0,
+                          use_fused_update=True, device="cuda",
+                          scan_rounds=2)
+    assert not tr.scan_captured
+    assert tr.scan_graph_reason == ("privatizer 'server_gauss': its exact "
+                                    "clip reads the norm on the host")
+    tr.run(3)
+    assert tr._graph is None
+    server, rows, _ = host_loop_device_rng(spec, ds, 3, loss_fn, init)
+    assert scanned_vs_host_loop(tr, server, rows)["apart"] == 0
+
+
+def test_gemma_w_layers_capture_b5():
+    """The reduced gemma3 (fp32, "WF") at seq 128: B5 runs on the band
+    path inside the captured round, counted at each replay, and the
+    scanned run equals the eager host loop within 1e-4 of each leaf."""
+    from functools import partial
+
+    from chip_smoke import host_loop_device_rng, scanned_vs_host_loop
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.data import SyntheticLMFederated
+    from repro_torch.models import model as M
+
+    cfg = get_reduced("gemma3-1b")
+    spec = FedRoundSpec(algorithm="scaffold", num_clients=4, num_sampled=2,
+                        local_steps=2, local_batch=1, eta_l=0.01)
+    data = SyntheticLMFederated(4, cfg.vocab_size, 128)
+    loss_fn = partial(M.loss_fn, cfg)
+    init = partial(M.init_params, cfg, device="cuda")
+    tr = FederatedTrainer(loss_fn, init, spec, data, seed=0,
+                          use_fused_update=True, device="cuda",
+                          scan_rounds=2)
+    tr.run_round()
+    swa_ops.reset_launches()
+    tr.run(2)
+    assert tr._tally.launches()["swa_attention"] == 4
+    assert swa_ops.LAUNCHES["swa_attention"] == 2 * 4
+    server, rows, _ = host_loop_device_rng(spec, data, 3, loss_fn, init)
+    assert scanned_vs_host_loop(tr, server, rows)["max_rel"] <= 1e-4

@@ -9,7 +9,9 @@ the CPU at the reduced preset.
   * ``--list-registries`` prints the port's registries, the reference's
     names among them;
   * the flags of engines the port has not yet raise
-    ``NotImplementedError``, never ignored.
+    ``NotImplementedError``, never ignored (the scanned engine runs; its
+    tiered store does not);
+  * ``--scan-rounds`` trains through the scanned engine and logs it.
 """
 import pytest
 import torch
@@ -63,7 +65,7 @@ def test_list_registries(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--pipeline-depth", "1"],
-                                  ["--scan-rounds", "2"],
+                                  ["--scan-rounds", "2", "--store", "tiered"],
                                   ["--async-buffer", "2"],
                                   ["--store", "tiered"],
                                   ["--store-backend", "memmap"],
@@ -72,3 +74,15 @@ def test_list_registries(capsys):
 def test_unported_engine_flags_raise(flag):
     with pytest.raises(NotImplementedError):
         main(BASE + ["--rounds", "1"] + flag)
+
+
+def test_scan_rounds_trains_scanned(capsys):
+    """``--scan-rounds`` runs the scanned engine, logs the reference's
+    line, and equals the per-round driving of the same engine."""
+    tr = main(BASE + ["--rounds", "3", "--scan-rounds", "2"])
+    assert tr.scan_active and tr.round_idx == 3
+    assert "scanned engine: on-device chunks of <= 2 rounds" in (
+        capsys.readouterr().out)
+    one = main(BASE + ["--rounds", "3", "--scan-rounds", "1"])
+    for k, v in tr.x.items():
+        assert torch.equal(one.x[k], v), k

@@ -190,7 +190,9 @@ def test_lm_megakernel_falls_back_loudly(lm_weights):
 
 @pytest.mark.parametrize("change", [
     dict(trainer={"pipeline_depth": 1}),
-    dict(trainer={"scan_rounds": 4}),
+    # the dense scanned engine is ported (tests/test_torch_scan_engine.py);
+    # the tiered one is not
+    dict(trainer={"scan_rounds": 4, "store": "tiered"}),
     dict(trainer={"store": "tiered"}),
     dict(trainer={"async_buffer": 2}),
     # the update spaces are ported (tests/test_torch_update_space.py):
