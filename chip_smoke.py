@@ -95,6 +95,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
   25. gemma3-1b at its published widths cut to 2 "W" layers, seq 2048,
      ``--scan-rounds 2`` through ``repro_torch.launch.train.main``: B5
      inside the captured round, held to the host loop within 1e-4
+  26. the tiered store's scanned engine on the EMNIST MLP at full width
+     (N 100, S 5, K 25, chunks of 5: a cohort buffer of 25 rows),
+     bitwise the dense engine through B1 (SCAFFOLD) and B2 (scaffold_m,
+     int8_ef, local heavy-ball), at gather-ahead depths 1, 2 and 4, over
+     the dense, memmap and sharded backends, and resumed from a
+     checkpoint; s/round, card-busy share, client-store bytes on the card
+  27. population scale: N = 10^6 procedural quadratic clients at d 1024
+     (S 64, K 2, chunks of 16), the tiered engine over the dense and
+     memmap backends and the dense scanned engine bitwise equal through
+     B3 and B4; s/round, each trainer's device and host memory
+  28. the pipelined host loop bitwise the synchronous one: gemma3-1b at
+     phase 10's settings (B5, B1) at depth 1, and Table 5's EMNIST at
+     depth 2 with the stale-row repair counted
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; a launch inside a captured CUDA graph counts at each
@@ -1305,7 +1318,7 @@ def phase_lm_momentum(result):
             raise AssertionError(f"lm momentum round {r + 1}: non-finite {m}")
         if r == 0:
             # the slots round 1 wrote (a sample of each leaf of each row)
-            rows = tr.solver_store.rows
+            rows = tr.solver_store.all_rows()
             seen = [max(float(v[i].reshape(-1)[:4096].abs().max())
                         for v in rows.values())
                     for i in range(spec.num_clients)]
@@ -2459,7 +2472,7 @@ def phase_emnist_codecs(result):
                     raise AssertionError(f"codecs {name}: dp_epsilon "
                                          f"{m['dp_epsilon']}")
                 if tr.residual_store is not None:
-                    rows = tr.residual_store.rows
+                    rows = tr.residual_store.all_rows()
                     for cid in ids.tolist():
                         stored[cid] = {k: v[cid].clone()
                                        for k, v in rows.items()}
@@ -2632,7 +2645,7 @@ def host_loop_device_rng(spec, ds, rounds, loss_fn, init_params, *,
         for name, st in stores.items():
             st.scatter(ids, new[name])
         hist.append({k: float(v) for k, v in out.metrics.items()})
-    return server, {name: st.rows for name, st in stores.items()}, hist
+    return server, {name: st.all_rows() for name, st in stores.items()}, hist
 
 
 def _flat(tree, prefix=""):
@@ -3093,6 +3106,441 @@ def phase_gemma_scanned(result):
     torch.cuda.empty_cache()
 
 
+# -- the tiered store and the pipelined loop (phases 26-28) -----------------
+
+# Table 4's population (N 100 of 20,000 samples) at its 5 % cohort, the
+# MLP at full width, K 25, eta_l 0.3; batch 80 as Table 5's (Table 4's
+# script takes 0.2 of a 200-sample shard, 40)
+TIERED_EMNIST = dict(num_clients=100, samples=20_000, seed=0)
+TIERED_SPEC = dict(num_clients=100, num_sampled=5, local_steps=25,
+                   local_batch=80, eta_l=0.3)
+TIERED_CHUNK, TIERED_ROUNDS = 5, 20
+# benchmarks/bench_store.py's cohort (S 64, K 2, chunks of 16) at phase
+# 13's width, a million clients
+POP_N, POP_DIM, POP_S, POP_K, POP_CHUNK, POP_ROUNDS = (
+    1_000_000, 1024, 64, 2, 16, 32)
+POP_BLOCK = 1 << 16  # rows a comparison holds at a time
+
+
+def host_rss_gb() -> float:
+    """Resident host memory of this process now, GB (``VmRSS``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def trainer_state(tr) -> dict:
+    """A trainer's x, c, optimizer slots and every population row, on the
+    host: the dense scanned engine's device store mirrored, a tiered
+    store's write-backs landed."""
+    tr.sync_host_store()
+    out = {k: v.detach().cpu().clone() for k, v in _flat(
+        {"x": tr.x, "c": tr.c, "opt": tr.server.opt_state}).items()}
+    for name, st in tr._store_families():
+        out.update({f"{name}/{k}": v.clone()
+                    for k, v in st.all_rows().items()})
+    return out
+
+
+def _apart(a: dict, b: dict) -> list:
+    """Keys of two flat states not bitwise equal (all of them when the
+    keys differ)."""
+    import torch
+
+    if sorted(a) != sorted(b):
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def _history(tr) -> list:
+    return [{k: v for k, v in m.items() if k != "round"} for m in tr.history]
+
+
+def _timed_chunks(tr, rounds: int, chunk: int) -> list:
+    """Run ``rounds`` in chunks of ``chunk``, each timed on the host clock
+    between card synchronisations; seconds a round of each chunk."""
+    import torch
+
+    secs = []
+    for _ in range(rounds // chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(chunk)
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) / chunk)
+    return secs
+
+
+def phase_tiered_emnist(result):
+    """Phase 26: the tiered store's scanned engine bitwise the dense one
+    on the card, at the EMNIST MLP's full width: N 100 of 20,000 samples
+    (similarity 0), S 5 (Table 4's 5 %), K 25, batch 80, eta_l 0.3, 20
+    rounds in chunks of 5, so the cohort buffer holds 25 of 100 rows.
+    SCAFFOLD through B1; scaffold_m with int8_ef and local heavy-ball
+    through B2 (three row families). Each must equal the dense engine in
+    x, c, every row family and the metric history, with the same
+    launches; SCAFFOLD also at gather-ahead depths 1 and 4 (2 is the
+    default), over the memmap and sharded backends, and resumed from a
+    checkpoint after 7 rounds. Logs s/round of both engines, the card-busy
+    share and ``client_store_device_bytes``."""
+    import torch
+
+    from repro_torch.checkpoint import load_trainer, save_trainer
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.data import EmnistLikeFederated
+
+    data = EmnistLikeFederated(similarity_pct=0.0, **TIERED_EMNIST)
+    R, rounds = TIERED_CHUNK, TIERED_ROUNDS
+    paths = {"b1_paths": 0, "b2_paths": 0}
+    for tag, change, key, path in (
+            ("scaffold", dict(algorithm="scaffold"), "scaffold_update",
+             "b1_paths"),
+            ("scaffold_m int8_ef heavy-ball",
+             dict(algorithm="scaffold_m", compress="int8_ef",
+                  local_solver="momentum", local_momentum=0.9),
+             "scaffold_momentum_update", "b2_paths")):
+        spec = FedRoundSpec(**TIERED_SPEC, **change)
+        want_n = rounds * spec.num_sampled * spec.local_steps
+        runs, trainers = {}, {}
+        variants = [("dense", {}), ("tiered", dict(store="tiered"))]
+        if tag == "scaffold":
+            variants += [
+                ("tiered depth 1", dict(store="tiered", prefetch_depth=1)),
+                ("tiered depth 4", dict(store="tiered", prefetch_depth=4)),
+                ("tiered memmap", dict(store="tiered",
+                                       store_backend="memmap")),
+                ("tiered sharded", dict(store="tiered",
+                                        store_backend="sharded"))]
+        for name, kw in variants:
+            tr = _mlp_trainer(spec, data, scan_rounds=R, **kw)
+            if not tr.scan_captured:
+                raise AssertionError(f"tiered {tag} {name}: not captured")
+            reset_launches()
+            secs = _timed_chunks(tr, rounds, R)
+            n = launches()
+            runs[name] = (trainer_state(tr), _history(tr), n, secs,
+                          tr.client_store_device_bytes())
+            if n[key] != want_n or sum(n.values()) != want_n:
+                raise AssertionError(f"tiered {tag} {name}: launches {n}, "
+                                     f"want {key} {want_n}")
+            if name != "dense":
+                paths[path] += n[key]
+            if name in ("dense", "tiered") and tag == "scaffold":
+                trainers[name] = tr
+            else:
+                tr.close()
+        ref_state, ref_hist = runs["dense"][0], runs["dense"][1]
+        for name, (state, hist, n, secs, dev_bytes) in runs.items():
+            apart = _apart(ref_state, state)
+            log(f"tiered {tag}, {name}: s/round "
+                + ", ".join(f"{v:.5f}" for v in secs)
+                + f" (chunks of {R}; chunk 1 with warm-up and capture), "
+                f"median of chunks 2-{len(secs)} "
+                f"{statistics.median(secs[1:]):.5f}; client store on the "
+                f"card {dev_bytes} B; {len(apart)} of {len(state)} leaves "
+                f"apart from dense; history equal {hist == ref_hist}; "
+                f"launches {n}")
+            if apart or hist != ref_hist:
+                raise AssertionError(f"tiered {tag} {name} vs dense: {apart}")
+        row = runs["dense"][4] // spec.num_clients
+        cap = min(spec.num_clients, R * spec.num_sampled)
+        if (runs["tiered"][4], runs["dense"][4]) != (cap * row,
+                                                     spec.num_clients * row):
+            raise AssertionError(f"tiered {tag}: device bytes "
+                                 f"{runs['tiered'][4]}, {runs['dense'][4]}")
+        log(f"tiered {tag}: client_store_device_bytes tiered "
+            f"{runs['tiered'][4]} = min(N, R S) {cap} x {row} B a row, "
+            f"dense {runs['dense'][4]} = N {spec.num_clients} x {row}")
+        result.setdefault("tiered_emnist", {})[tag] = {
+            name: statistics.median(v[3][1:]) for name, v in runs.items()}
+        if tag == "scaffold":
+            for name, tr in trainers.items():
+                share, card = _busy_share(tr)
+                result.setdefault("tiered_busy", {})[name] = share
+                log(f"tiered {tag}, {name}: card-busy share "
+                    f"{100 * share:.1f}% (3 more chunks of {R}, each replay "
+                    f"between CUDA events, over the chunk's wall), "
+                    f"{card:.3f} ms of card time a round")
+                tr.close()
+            trainers.clear()
+            ckpt = OUT / "tiered_ckpt"
+            a = _mlp_trainer(spec, data, scan_rounds=R, store="tiered",
+                             store_backend="memmap")
+            a.run(7)
+            save_trainer(str(ckpt), a)
+            a.close()
+            b = _mlp_trainer(spec, data, scan_rounds=R, store="tiered",
+                             store_backend="memmap")
+            load_trainer(str(ckpt) + ".npz", b)
+            b.run(rounds - 7)
+            apart = _apart(ref_state, trainer_state(b))
+            hist_equal = _history(b) == ref_hist[7:]
+            log(f"tiered {tag}: checkpoint after 7 rounds (memmap rows), "
+                f"restored into a fresh trainer that ran rounds 8-{rounds}: "
+                f"{len(apart)} leaves apart from the unbroken dense run, "
+                f"history equal {hist_equal}")
+            if apart or not hist_equal:
+                raise AssertionError(f"tiered resume: {apart}")
+            b.close()
+            (OUT / "tiered_ckpt.npz").unlink()
+    result.setdefault("b1_paths", {})["emnist tiered scanned"] = paths[
+        "b1_paths"]
+    result.setdefault("b2_paths", {})["emnist tiered scanned"] = paths[
+        "b2_paths"]
+    del data
+    torch.cuda.empty_cache()
+
+
+def _compare_population(tag, dense, tiered) -> None:
+    """The dense scanned trainer's device store against a tiered store,
+    ``POP_BLOCK`` rows at a time, and x and c: raises unless bitwise
+    equal."""
+    import numpy as np
+    import torch
+
+    apart = [k for k in dense.x if not torch.equal(dense.x[k],
+                                                     tiered.x[k])]
+    apart += [k for k in dense.c if not torch.equal(dense.c[k],
+                                                      tiered.c[k])]
+    tiered.sync_host_store()
+    fams = dense._device_families()
+    for name, st in tiered._store_families():
+        for lo in range(0, st.num_clients, POP_BLOCK):
+            ids = np.arange(lo, min(lo + POP_BLOCK, st.num_clients))
+            got = st.gather(ids)
+            for k, v in got.items():
+                if not torch.equal(fams[name][k][lo:lo + len(ids)],
+                                   v.to(fams[name][k].device)):
+                    apart.append(f"{name}/{k} rows {lo}+")
+    log(f"population {tag}: {len(apart)} leaves or blocks apart from the "
+        f"dense engine")
+    if apart:
+        raise AssertionError(f"population {tag}: {apart[:8]}")
+
+
+def phase_population(result):
+    """Phase 27: population scale. ``benchmarks/bench_store.py``'s cohort
+    (S 64, K 2, chunks of 16) on ``ProceduralQuadraticDataset`` at d 1024
+    and N = 10^6: 4.1 GB of fp32 c_i against a cohort buffer of 1024 rows.
+    SCAFFOLD with the K-step kernel, once B3 (sgd) and once B4 (local
+    heavy-ball, a second 4.1 GB row family): the tiered engine over the
+    dense and the memmap backends, then the dense scanned engine at the
+    same N, 32 rounds each, all three bitwise equal (x, c and every
+    row). Logs s/round, the client store on the card, the population's
+    bytes, each trainer's peak device memory above what was held before
+    it, the resident host memory its set-up and its rounds added, and the
+    process's max RSS."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.data import ProceduralQuadraticDataset, quadratic_loss
+
+    ds = ProceduralQuadraticDataset(POP_N, POP_DIM, seed=0)
+    init = lambda gen: {"x": torch.ones(POP_DIM)}  # noqa: E731
+    memmap_dir = OUT / "population_memmap"
+    memmap_dir.mkdir(parents=True, exist_ok=True)
+    for solver, key, path in (("sgd", "scaffold_local_loop", "b3_paths"),
+                              ("momentum", "scaffold_momentum_local_loop",
+                               "b4_paths")):
+        spec = FedRoundSpec(algorithm="scaffold", num_clients=POP_N,
+                            num_sampled=POP_S, local_steps=POP_K,
+                            local_batch=1, eta_l=0.1, local_solver=solver,
+                            local_momentum=0.9, use_megakernel=True)
+        trainers = {}
+        for name, kw in (("tiered dense", dict(store="tiered")),
+                         ("tiered memmap", dict(store="tiered",
+                                                store_backend="memmap")),
+                         ("dense", {})):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held, rss0 = torch.cuda.memory_allocated(), host_rss_gb()
+            t0 = time.perf_counter()
+            # the memmap backend's files under build/ (git-ignored)
+            old_tmp, tempfile.tempdir = tempfile.tempdir, str(memmap_dir)
+            try:
+                tr = FederatedTrainer(quadratic_loss, init, spec, ds, seed=0,
+                                      use_fused_update=True, device="cuda",
+                                      scan_rounds=POP_CHUNK, **kw)
+            finally:
+                tempfile.tempdir = old_tmp
+            setup = time.perf_counter() - t0
+            rss1 = host_rss_gb()
+            if not tr.scan_captured or tr.megakernel_fallback_reason != "":
+                raise AssertionError(f"population {name}: captured "
+                                     f"{tr.scan_captured}, megakernel "
+                                     f"{tr.megakernel_fallback_reason!r}")
+            reset_launches()
+            secs = _timed_chunks(tr, POP_ROUNDS, POP_CHUNK)
+            n = launches()
+            want = POP_ROUNDS * POP_S
+            losses = [m["loss"] for m in tr.history]
+            pop = sum(st.population_nbytes for _, st in tr._store_families())
+            rss2 = host_rss_gb()
+            rec = dict(s_round=statistics.median(secs[1:]),
+                       device_store_bytes=tr.client_store_device_bytes(),
+                       population_bytes=pop,
+                       peak_device_gb=(torch.cuda.max_memory_allocated()
+                                       - held) / 1e9,
+                       rss_added_gb=rss2 - rss0,
+                       max_rss_gb=host_peak_gb())
+            log(f"population {solver} ({key}), {name}: N {POP_N}, d "
+                f"{POP_DIM}; set-up {setup:.2f} s; s/round "
+                + ", ".join(f"{v:.5f}" for v in secs)
+                + f" (chunks of {POP_CHUNK}; chunk 1 with warm-up and "
+                f"capture); client store on the card "
+                f"{rec['device_store_bytes']} B; population {pop} B in the "
+                f"{name.split()[-1]} tier; peak device memory "
+                f"{rec['peak_device_gb']:.3f} GB above the "
+                f"{held / 1e9:.3f} GB held before; resident host memory "
+                f"{rss1 - rss0:+.2f} GB by the set-up, {rss2 - rss1:+.2f} GB "
+                f"by the rounds (max RSS {rec['max_rss_gb']:.1f} GB); loss "
+                f"{losses[0]:.4f} -> "
+                f"{losses[-1]:.4f}; launches {n}")
+            if n[key] != want or sum(n.values()) != want or not all(
+                    math.isfinite(v) for v in losses):
+                raise AssertionError(f"population {name}: launches {n}, "
+                                     f"want {key} {want}; losses {losses}")
+            result.setdefault("population", {})[(solver, name)] = rec
+            result.setdefault(path, {})[f"population {name}"] = n[key]
+            trainers[name] = tr
+        dense = trainers.pop("dense")
+        for name, tr in trainers.items():
+            _compare_population(f"{solver}, {name}", dense, tr)
+            tr.close()
+        dense.close()
+        del dense, trainers, tr
+        torch.cuda.empty_cache()
+
+
+def phase_pipelined(result):
+    """Phase 28: the pipelined host loop bitwise the synchronous one on
+    the card. gemma3-1b at phase 10's settings (published widths, 26
+    layers, seq 2048, N 4, S 2, K 2; B5 on the "W" layers, B1 on the
+    steps), ``pipeline_depth`` 1 against 0, 3 rounds each; then Table 5's
+    EMNIST (N 50, S 10, K 25, similarity 0) at depth 2 against 0, 10
+    rounds, where clients come back in consecutive rounds, so prepared
+    rows are repaired. x and every store row must be bitwise equal, the
+    launches equal. Logs s/round of each depth and the rows repaired."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.core import controller
+    from repro_torch.data import EmnistLikeFederated
+
+    repaired = []
+    real = controller.refresh_rows
+
+    def counting(prefetched, fresh, stale):
+        repaired.append(int(stale.sum()))
+        real(prefetched, fresh, stale)
+
+    seq_len, rounds = 2048, 3
+    spec = FedRoundSpec(algorithm="scaffold", num_clients=4, num_sampled=2,
+                        local_steps=2, local_batch=1, eta_l=0.01,
+                        strategy="client_sequential")
+    cfg, _, _ = _lm_fit(spec, seq_len, arch="gemma3-1b",
+                        chunk=get_config("gemma3-1b").vocab_size // 16)
+    n_w = cfg.pattern_for_layers().count("W")
+    steps = spec.num_sampled * spec.local_steps
+    controller.refresh_rows = counting
+    try:
+        runs = {}
+        for depth in (0, 1):
+            tr = _lm_trainer(cfg, spec, seq_len, pipeline_depth=depth)
+            groups = len({v.dtype for v in tr.x.values()})
+            reset_launches()
+            del repaired[:]
+            secs = []
+            for _ in range(rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.run_round()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            n = launches()
+            want = _want_launches(swa_attention=n_w * steps * rounds,
+                                  scaffold_update=steps * groups * rounds)
+            runs[depth] = ({**{f"x/{k}": v.cpu() for k, v in tr.x.items()},
+                            **{f"store/{k}": v for k, v in
+                               tr.store.all_rows().items()}},
+                           _history(tr), sum(repaired))
+            log(f"pipelined gemma3-1b ({cfg.num_layers} layers, seq "
+                f"{seq_len}), depth {depth}: s/round "
+                + ", ".join(f"{v:.3f}" for v in secs)
+                + f" (median of rounds 2-{rounds} "
+                f"{statistics.median(secs[1:]):.3f}); rows repaired "
+                f"{sum(repaired)}; peak host memory {host_peak_gb():.1f} GB;"
+                f" launches {n}")
+            if n != want:
+                raise AssertionError(f"pipelined gemma depth {depth}: {n} "
+                                     f"vs {want}")
+            result.setdefault("pipelined", {})[("gemma3-1b", depth)] = \
+                statistics.median(secs[1:])
+            result.setdefault("b5_paths", {})[
+                f"gemma3-1b pipelined depth {depth}"] = n["swa_attention"]
+            result.setdefault("b1_paths", {})[
+                f"gemma3-1b pipelined depth {depth}"] = n["scaffold_update"]
+            tr.close()
+            del tr
+            torch.cuda.empty_cache()
+        apart = _apart(runs[0][0], runs[1][0])
+        log(f"pipelined gemma3-1b: depth 1 vs 0, {len(apart)} of "
+            f"{len(runs[0][0])} leaves apart (x and store rows); history "
+            f"equal {runs[0][1] == runs[1][1]}")
+        if apart or runs[0][1] != runs[1][1]:
+            raise AssertionError(f"pipelined gemma: {apart}")
+        del runs
+
+        data = EmnistLikeFederated(similarity_pct=0.0, **EMNIST)
+        spec = FedRoundSpec(algorithm="scaffold",
+                            local_batch=data.local_batch_size(0.2),
+                            **EMNIST_SPEC)
+        runs = {}
+        for depth in (0, 2):
+            tr = _mlp_trainer(spec, data, pipeline_depth=depth)
+            reset_launches()
+            del repaired[:]
+            secs = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.run_round()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            n = launches()
+            want = _want_launches(scaffold_update=10 * spec.num_sampled
+                                  * spec.local_steps)
+            runs[depth] = (trainer_state(tr), _history(tr))
+            log(f"pipelined table 5 (N 50, S 10, K 25), depth {depth}: "
+                f"s/round " + ", ".join(f"{v:.4f}" for v in secs)
+                + f" (median of rounds 2-10 {statistics.median(secs[1:]):.4f})"
+                f"; rows repaired {sum(repaired)} in "
+                f"{len([r for r in repaired if r])} repairs; launches {n}")
+            if n != want or (depth and not sum(repaired)):
+                raise AssertionError(f"pipelined table 5 depth {depth}: {n} "
+                                     f"vs {want}, repaired {repaired}")
+            result.setdefault("pipelined", {})[("table 5", depth)] = \
+                statistics.median(secs[1:])
+            result.setdefault("b1_paths", {})[
+                f"table 5 pipelined depth {depth}"] = n["scaffold_update"]
+            tr.close()
+        apart = _apart(runs[0][0], runs[2][0])
+        log(f"pipelined table 5: depth 2 vs 0, {len(apart)} of "
+            f"{len(runs[0][0])} leaves apart; history equal "
+            f"{runs[0][1] == runs[2][1]}")
+        if apart or runs[0][1] != runs[2][1]:
+            raise AssertionError(f"pipelined table 5: {apart}")
+    finally:
+        controller.refresh_rows = real
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     """Run every phase; 0 when all passed."""
     import torch
@@ -3139,6 +3587,9 @@ def main() -> int:
     phase_table5_scanned(result)
     phase_capture_checks(result)
     phase_gemma_scanned(result)
+    phase_tiered_emnist(result)
+    phase_population(result)
+    phase_pipelined(result)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     # B1-B4 are bound by bytes and no one PyTorch call computes them
     for key in ("b1", "b2", "b3", "b4", "b5"):

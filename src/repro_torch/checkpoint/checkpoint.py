@@ -9,9 +9,11 @@ codec or the solver keeps them) and, under an update space that trains a
 subset, the frozen ``base``; ``extra`` holds the round counter, the host
 RNG states and the space's selection. The port's trees are flat dicts
 keyed by the reference's leaf paths, so a key reads the same in both
-packages and a checkpoint crosses them, and the engines: a scanned
-trainer's device store is synced to its host stores on save and pushed
-back on restore.
+packages and a checkpoint crosses them, and the engines and stores: a
+scanned trainer's device store is synced to its host stores on save and
+pushed back on restore, a tiered store's write-backs land before it is
+read, and a pipelined trainer records its host RNG states rewound past
+the rounds it prepared ahead.
 
 numpy has no bfloat16: a bf16 leaf is written as its raw 2-byte words
 (dtype ``|V2``, what ``np.savez`` makes of the reference's bf16 leaves)
@@ -101,7 +103,9 @@ def _unflatten_into(flat: Dict[str, np.ndarray], template, prefix=""):
     if arr.shape != tuple(template.shape):
         raise ValueError(f"checkpoint leaf {prefix!r} has shape "
                          f"{arr.shape}, the template {tuple(template.shape)}")
-    return _to_tensor(arr, template.dtype, prefix, template.device)
+    # a template on the meta device (a store's rows) reads to the host
+    device = "cpu" if template.device.type == "meta" else template.device
+    return _to_tensor(arr, template.dtype, prefix, device)
 
 
 def load_checkpoint(path: str, template) -> Tuple[Any, Dict[str, Any]]:
@@ -111,19 +115,30 @@ def load_checkpoint(path: str, template) -> Tuple[Any, Dict[str, Any]]:
     return _unflatten_into(flat, template), extra
 
 
-def _trainer_tree(trainer) -> Dict[str, Any]:
-    """The trainer's arrays under the checkpoint's stable keys. The
-    store rows are the stores' own tensors, not copies."""
+def _store_rows(store, rows: bool):
+    """A store's ``(N, ...)`` rows (the dense backend's own tensors, else a
+    gather of all N), or with ``rows`` False their shapes on the meta
+    device, a template to read into."""
+    if rows:
+        return store.all_rows()
+    return {k: torch.empty((store.num_clients,) + shape, dtype=dtype,
+                           device="meta")
+            for k, (shape, dtype) in store.template.items()}
+
+
+def _trainer_tree(trainer, rows: bool = True) -> Dict[str, Any]:
+    """The trainer's arrays under the checkpoint's stable keys; the store
+    rows as :func:`_store_rows` gives them."""
     tree = {
         "x": trainer.server.x,
         "c": trainer.server.c,
         "opt_state": trainer.server.opt_state,
-        "store": trainer.store.rows,
+        "store": _store_rows(trainer.store, rows),
     }
     if trainer.residual_store is not None:
-        tree["residuals"] = trainer.residual_store.rows
+        tree["residuals"] = _store_rows(trainer.residual_store, rows)
     if trainer.solver_store is not None:
-        tree["solver_slots"] = trainer.solver_store.rows
+        tree["solver_slots"] = _store_rows(trainer.solver_store, rows)
     if trainer.base_params is not None:
         # the frozen base rides with the deltas, so the checkpoint serves
         # without the training config (load_serving_params)
@@ -135,7 +150,10 @@ def save_trainer(path: str, trainer):
     """Checkpoint a ``FederatedTrainer``: its ``ServerState``, every
     client's rows, the round counter, the host RNG states and the update
     space's selection. A scanned trainer's device store is mirrored into
-    its host stores first, so the archive is the same in every engine."""
+    its host stores first, and a tiered trainer's write-backs land, so
+    the archive is the same in every engine and store; a pipelined
+    trainer's RNG states are rewound past its prepared rounds
+    (``host_rng_state``), which a restore prepares again."""
     trainer.sync_host_store()
     extra = {"round": trainer.round_idx,
              "host_rng": trainer.host_rng_state()}
@@ -157,7 +175,7 @@ def load_trainer(path: str, trainer):
             f"checkpoint was trained in update_space={saved_space!r} but "
             f"the trainer is configured for {trainer.update_space.name!r}; "
             f"restore into a matching FedRoundSpec")
-    template = _trainer_tree(trainer)
+    template = _trainer_tree(trainer, rows=False)
     if "base" in template:
         for key, cur in trainer.base_params.items():
             saved = _unflatten_into(flat, cur, f"base/{key}")

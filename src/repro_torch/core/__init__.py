@@ -2,18 +2,22 @@
 
   run_round        — one communication round over typed states
   run_rounds       — R rounds of the scanned engine over a device store
+  run_rounds_cohort — the same over a cohort-sized device buffer, the
+                     population in the tiered host store
   federated_round  — the reference's tuple shim over run_round
   client_update    — one client's K corrected local steps
-  FederatedTrainer — the host controller: the synchronous loop and the
-                     scanned engine (``scan_rounds``)
+  FederatedTrainer — the host controller: the synchronous and pipelined
+                     loops and the scanned engine (``scan_rounds``), over
+                     a dense or tiered population store
   device_sample_ids, DeviceClientSampler — the scanned engine's cohorts
 
 Registries, each listable and open to user entries: ``Algorithm``
 (``register_algorithm``), ``ServerOptimizer``, ``LocalSolver``,
 ``Compressor`` (uplink/downlink codecs with an error-feedback residual),
-``Privatizer`` (clip, Gaussian noise, the ``dp_epsilon`` accountant) and
+``Privatizer`` (clip, Gaussian noise, the ``dp_epsilon`` accountant),
 ``UpdateSpace`` (``full``, ``lora``, ``head_only``: the tree the engine
-trains). The JAX package's store-backend, availability and
+trains) and ``StoreBackend`` (``dense``, ``memmap``, ``sharded``: where
+the population's rows live). The JAX package's availability and
 staleness-weighting registries are not ported yet.
 """
 from repro_torch.core.api import (  # noqa: F401
@@ -30,6 +34,7 @@ from repro_torch.core.api import (  # noqa: F401
     register_server_optimizer,
     resolve_server_optimizer,
     run_rounds,
+    run_rounds_cohort,
     server_optimizer_names,
 )
 from repro_torch.core.compression import (  # noqa: F401
@@ -71,7 +76,18 @@ from repro_torch.core.sampling import (  # noqa: F401
     DeviceClientSampler,
     device_sample_ids,
 )
-from repro_torch.core.store import ClientStateStore  # noqa: F401
+from repro_torch.core.store import (  # noqa: F401
+    ClientStateStore,
+    DenseBackend,
+    MemmapBackend,
+    StoreBackend,
+    TieredClientStore,
+    make_store_backend,
+    refresh_rows,
+    register_store_backend,
+    stale_mask,
+    store_backend_names,
+)
 from repro_torch.core.update_space import (  # noqa: F401
     FullSpace,
     HeadOnlySpace,

@@ -17,7 +17,9 @@ baseline; server optimizers: ``sgd``, ``momentum`` and ``adam``.
 
 ``run_rounds`` is the scanned engine's round loop over a device-resident
 ``(N, ...)`` client store (the reference's ``lax.scan``), and
-``scan_round`` its body, one round.
+``scan_round`` its body, one round; ``run_rounds_cohort`` and
+``scan_cohort_round`` the same over a cohort-sized store, the tiered
+store's scanned engine.
 """
 from __future__ import annotations
 
@@ -354,6 +356,34 @@ def store_families(spec):
     return fams
 
 
+def _round_over_store(grad_fn, spec, server: ServerState, client_store, t,
+                      slots, batches, weights, comp_key, priv_key,
+                      use_fused_update: bool) -> RoundOutput:
+    """Gather rows ``slots`` of every row family of ``client_store``, run
+    the round at absolute index ``t`` (the compression and privacy keys
+    folded by it), and write the new rows back over rows ``slots`` in
+    place."""
+    from repro_torch.core.rounds import run_round
+    from repro_torch.core.tree import tree_gather, tree_scatter
+
+    fams = store_families(spec)
+    stores = client_store if len(fams) > 1 else {"c_i": client_store}
+    rows = {name: tree_gather(stores[name], slots) for name in fams}
+    clients = ClientRoundState(
+        c_i=rows["c_i"], uplink_residual=rows.get("residual"),
+        solver_slots=rows.get("solver"), weights=weights)
+    out = run_round(grad_fn, spec, server, clients, batches,
+                    use_fused_update=use_fused_update,
+                    comp_key=None if comp_key is None else comp_key.fold_in(t),
+                    priv_key=None if priv_key is None else priv_key.fold_in(t),
+                    dp_round=t)
+    new = {"c_i": out.clients.c_i, "residual": out.clients.uplink_residual,
+           "solver": out.clients.solver_slots}
+    for name in fams:
+        tree_scatter(stores[name], slots, new[name])
+    return out
+
+
 def scan_round(grad_fn, spec, server: ServerState, client_store, t, *,
                data, batch_fn, sample_key, data_key, comp_key=None,
                priv_key=None, sizes=None,
@@ -365,31 +395,52 @@ def scan_round(grad_fn, spec, server: ServerState, client_store, t, *,
     privacy keys folded by ``t``), and the cohort's new rows written
     back into ``client_store`` in place. Returns the round's
     ``RoundOutput``; its ``server`` is new, the store is the caller's."""
-    from repro_torch.core.rounds import run_round
     from repro_torch.core.sampling import device_sample_ids
-    from repro_torch.core.tree import tree_gather, tree_scatter
 
-    fams = store_families(spec)
-    wrapped = len(fams) > 1
-    stores = client_store if wrapped else {"c_i": client_store}
     ids = device_sample_ids(sample_key, t, spec.num_clients,
                             spec.num_sampled)
     batches = batch_fn(data, ids, data_key.fold_in(t))
-    rows = {name: tree_gather(stores[name], ids) for name in fams}
-    clients = ClientRoundState(
-        c_i=rows["c_i"], uplink_residual=rows.get("residual"),
-        solver_slots=rows.get("solver"),
-        weights=None if sizes is None else sizes.index_select(0, ids))
-    out = run_round(grad_fn, spec, server, clients, batches,
-                    use_fused_update=use_fused_update,
-                    comp_key=None if comp_key is None else comp_key.fold_in(t),
-                    priv_key=None if priv_key is None else priv_key.fold_in(t),
-                    dp_round=t)
-    new = {"c_i": out.clients.c_i, "residual": out.clients.uplink_residual,
-           "solver": out.clients.solver_slots}
-    for name in fams:
-        tree_scatter(stores[name], ids, new[name])
-    return out
+    return _round_over_store(
+        grad_fn, spec, server, client_store, t, ids, batches,
+        None if sizes is None else sizes.index_select(0, ids), comp_key,
+        priv_key, use_fused_update)
+
+
+def scan_cohort_round(grad_fn, spec, server: ServerState, cohort_store, t,
+                      *, data, batch_fn, round_ids, slot_ids, data_key,
+                      comp_key=None, priv_key=None, weights=None,
+                      use_fused_update: bool = False) -> RoundOutput:
+    """One round of the tiered scanned engine at absolute round ``t``,
+    over a cohort-sized store: ``round_ids`` (S,) are the round's global
+    client ids, which reach only the data gather; ``slot_ids`` (S,) the
+    same clients as rows of ``cohort_store`` (leaves ``(U, ...)``), which
+    every store gather and scatter goes through; ``weights`` (S,) fp32
+    the host-gathered sizes, or None. The new rows are written back over
+    rows ``slot_ids`` in place."""
+    batches = batch_fn(data, round_ids, data_key.fold_in(t))
+    return _round_over_store(grad_fn, spec, server, cohort_store, t,
+                             slot_ids, batches, weights, comp_key, priv_key,
+                             use_fused_update)
+
+
+def _check_store(spec, client_store, leading: str) -> None:
+    fams = store_families(spec)
+    if len(fams) > 1 and not (isinstance(client_store, dict)
+                              and set(fams) <= set(client_store)):
+        raise ValueError(
+            f"this config carries per-client rows beyond c_i: pass "
+            f"client_store as a dict with keys {sorted(fams)} and "
+            f"({leading}, ...) leaves")
+
+
+def _stack_metrics(history):
+    """Per-round metric dicts -> each metric stacked ``(R,)``."""
+    if not history:
+        return {}
+    return {k: (torch.stack([m[k] for m in history])
+                if isinstance(history[0][k], torch.Tensor)
+                else torch.tensor([m[k] for m in history]))
+            for k in history[0]}
 
 
 def run_rounds(grad_fn, spec, server: ServerState, client_store, R: int, *,
@@ -425,13 +476,7 @@ def run_rounds(grad_fn, spec, server: ServerState, client_store, R: int, *,
     """
     if shard_fn is not None:
         raise NotImplementedError("shard_fn: the port runs on one device")
-    fams = store_families(spec)
-    if len(fams) > 1 and not (isinstance(client_store, dict)
-                              and set(fams) <= set(client_store)):
-        raise ValueError(
-            f"this config carries per-client rows beyond c_i: pass "
-            f"client_store as a dict with keys {sorted(fams)} and (N, ...) "
-            f"leaves")
+    _check_store(spec, client_store, "N")
     history = []
     for r in range(R):
         out = scan_round(grad_fn, spec, server, client_store,
@@ -441,8 +486,48 @@ def run_rounds(grad_fn, spec, server: ServerState, client_store, R: int, *,
                          use_fused_update=use_fused_update)
         server = out.server
         history.append(out.metrics)
-    metrics = {k: (torch.stack([m[k] for m in history])
-                   if isinstance(history[0][k], torch.Tensor)
-                   else torch.tensor([m[k] for m in history]))
-               for k in history[0]} if history else {}
-    return server, client_store, metrics
+    return server, client_store, _stack_metrics(history)
+
+
+def run_rounds_cohort(grad_fn, spec, server: ServerState, cohort_store,
+                      R: int, *, data, batch_fn, round_ids, slot_ids,
+                      data_key, comp_key=None, priv_key=None, start_round=0,
+                      weights=None, use_fused_update: bool = False,
+                      shard_fn=None):
+    """:func:`run_rounds` over a cohort-sized client store, the tiered
+    store's scanned engine: the reference's ``run_rounds_cohort``, a loop
+    of :func:`scan_cohort_round`.
+
+    The population stays in the host store (``core/store.py``); the
+    rounds touch only ``cohort_store``, laid out as ``run_rounds``'s
+    store with leaves ``(U, ...)``, U the chunk's cohort-union capacity
+    ``min(N, R*S)``. Rows past the chunk's union are padding that no
+    ``slot_ids`` entry names: never read, never written.
+
+    round_ids:  ``(R, S)`` int64, round r's global cohort ids, drawn by
+                the caller from the stream the dense engine draws
+                (``device_sample_ids``), so the cohorts are the same.
+    slot_ids:   ``(R, S)`` int64, the same clients as rows of
+                ``cohort_store`` (a client sampled twice in a chunk maps
+                to one row, so a later round reads what an earlier one
+                wrote, as in the dense store).
+    weights:    optional ``(R, S)`` fp32 aggregation weights, the
+                host-gathered ``sizes[round_ids]``.
+
+    Returns ``(server, cohort_store, metrics)`` as ``run_rounds`` does;
+    the caller writes the union's rows back to the population.
+    """
+    if shard_fn is not None:
+        raise NotImplementedError("shard_fn: the port runs on one device")
+    _check_store(spec, cohort_store, "U")
+    history = []
+    for r in range(R):
+        out = scan_cohort_round(
+            grad_fn, spec, server, cohort_store, start_round + r, data=data,
+            batch_fn=batch_fn, round_ids=round_ids[r], slot_ids=slot_ids[r],
+            data_key=data_key, comp_key=comp_key, priv_key=priv_key,
+            weights=None if weights is None else weights[r],
+            use_fused_update=use_fused_update)
+        server = out.server
+        history.append(out.metrics)
+    return server, cohort_store, _stack_metrics(history)

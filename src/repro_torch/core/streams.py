@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -44,8 +45,10 @@ import torch
 # fn(kind, path, shape) -> array; kind is "permutation", "normal",
 # "uniform" or "categorical"
 _INJECTED: Optional[Callable] = None
-# the DrawAhead that serves the draws of the round in progress, or None
-_AHEAD: Optional["DrawAhead"] = None
+# the DrawAhead that serves the draws of the round in progress in this
+# thread (its ``ahead`` attribute, None outside a round): a store worker
+# that plans cohorts draws at its own paths while a round runs
+_ROUND = threading.local()
 
 
 class StreamKey:
@@ -132,8 +135,9 @@ def _draw(kind: str, key: StreamKey, shape, logits=None) -> torch.Tensor:
 
 def _take(kind: str, key: StreamKey, shape, logits=None) -> torch.Tensor:
     shape = tuple(int(s) for s in shape)
-    if _AHEAD is not None:
-        return _AHEAD.serve(kind, key, shape, logits)
+    ahead = getattr(_ROUND, "ahead", None)
+    if ahead is not None:
+        return ahead.serve(kind, key, shape, logits)
     return _draw(kind, key, shape, logits)
 
 
@@ -196,15 +200,14 @@ class DrawAhead:
     def serving(self, t: int):
         """Within the block every draw of the round ``t`` is served from
         the buffers (recorded and drawn at its path, in the first
-        round)."""
-        global _AHEAD
+        round); in this thread only."""
         if self.entries is None:
             self.entries, self._recording_t = {}, int(t)
-        prev, _AHEAD = _AHEAD, self
+        prev, _ROUND.ahead = getattr(_ROUND, "ahead", None), self
         try:
             yield
         finally:
-            _AHEAD = prev
+            _ROUND.ahead = prev
             self._recording_t = None
 
     def serve(self, kind, key: StreamKey, shape, logits=None):

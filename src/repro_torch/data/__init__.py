@@ -4,6 +4,7 @@ from repro_torch.data.emnist_like import (  # noqa: F401
     similarity_split,
 )
 from repro_torch.data.quadratics import (  # noqa: F401
+    ProceduralQuadraticDataset,
     QuadraticDataset,
     make_paper_fig3,
     make_similarity_quadratics,

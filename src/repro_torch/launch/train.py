@@ -16,11 +16,15 @@ llama3.2-3b at its published widths:
       --rounds 8 --log-every 4 --scan-rounds 4 --clients 8 --sampled 2 \
       --local-steps 2 --local-batch 1 --seq-len 64
 
-The flags of the engines the port has not yet (``--pipeline-depth``
-without ``--scan-rounds``, ``--async-buffer`` and its availability and
-staleness flags, ``--store tiered``, a ``--store-backend`` other than
-dense) are accepted as the reference's are, and raise
-``NotImplementedError`` when set.
+``--pipeline-depth d`` prepares d rounds ahead while a round runs;
+``--store tiered`` keeps the population in host stores behind
+``--store-backend`` (dense, memmap, sharded) with ``--prefetch-depth``
+chunks of gather-ahead, the scanned engine then holding only the
+cohort's rows on the card.
+
+The async engine's flags (``--async-buffer`` and its availability and
+staleness flags) are accepted as the reference's are, and raise
+``NotImplementedError`` when set: the port has no async engine yet.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch.core import (
     local_solver_names,
     privatizer_names,
     server_optimizer_names,
+    store_backend_names,
     update_space_names,
 )
 from repro_torch.data import SyntheticLMFederated
@@ -52,7 +57,8 @@ from repro_torch.optim.schedules import schedule_names
 
 # the async engine's flags and their defaults: any other value selects
 # an engine the port does not have yet
-_ASYNC_FLAGS = {"max_inflight": 0, "availability": "always_on",
+_ASYNC_FLAGS = {"async_buffer": 0, "max_inflight": 0,
+                "availability": "always_on",
                 "availability_seed": 0, "dropout": 0.0,
                 "latency_sigma": 1.0, "availability_trace": "",
                 "staleness_weighting": "constant", "staleness_alpha": 0.5,
@@ -141,11 +147,18 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--scan-rounds", type=int, default=0,
                     help="scanned-engine chunk size: run rounds on the device "
                          "in chunks of up to this many (0 = host loop)")
-    # engines not ported yet
-    ap.add_argument("--pipeline-depth", type=int, default=0)
-    ap.add_argument("--store", default="dense", choices=["dense", "tiered"])
-    ap.add_argument("--store-backend", default="")
-    ap.add_argument("--prefetch-depth", type=int, default=2)
+    ap.add_argument("--pipeline-depth", type=int, default=0,
+                    help="rounds of host inputs prepared ahead while a "
+                         "round runs (0 = synchronous)")
+    ap.add_argument("--store", default="dense", choices=["dense", "tiered"],
+                    help="tiered: the population stays in host stores, "
+                         "only cohort rows reach the card")
+    ap.add_argument("--store-backend", default="",
+                    help="where the population rows live ('' = dense; "
+                         "see --list-registries)")
+    ap.add_argument("--prefetch-depth", type=int, default=2,
+                    help="chunks of gather-ahead of the tiered store")
+    # the async engine, not ported yet
     ap.add_argument("--async-buffer", type=int, default=0)
     ap.add_argument("--max-inflight", type=int, default=0)
     ap.add_argument("--availability", default="always_on")
@@ -185,6 +198,7 @@ def main(argv=None):
             ("server_optimizers", server_optimizer_names()),
             ("compressors", compressor_names()),
             ("local_solvers", local_solver_names()),
+            ("store_backends", store_backend_names()),
             ("privatizers", privatizer_names()),
             ("update_spaces", update_space_names()),
         ):
@@ -196,9 +210,6 @@ def main(argv=None):
     if set_async:
         raise NotImplementedError(
             f"{', '.join(set_async)}: the async engine is not ported yet")
-    if args.prefetch_depth != 2:
-        raise NotImplementedError(
-            "--prefetch-depth: the tiered store is not ported yet")
     dev = resolve_device(args.device)
     cfg = preset_config(args.arch, args.preset)
     if args.loss_chunk_vocab is not None:
@@ -241,9 +252,10 @@ def main(argv=None):
 
     trainer = FederatedTrainer(
         partial(M.loss_fn, cfg), partial(M.init_params, cfg, device=dev),
-        spec, data, seed=args.seed, use_fused_update=True, device=dev, pipeline_depth=args.pipeline_depth,
-        scan_rounds=args.scan_rounds, store=args.store,
-        store_backend=args.store_backend, async_buffer=args.async_buffer)
+        spec, data, seed=args.seed, use_fused_update=True, device=dev,
+        pipeline_depth=args.pipeline_depth, scan_rounds=args.scan_rounds,
+        store=args.store, store_backend=args.store_backend,
+        prefetch_depth=args.prefetch_depth)
     if trainer.update_space.trains_subset:
         n_train = trainer.update_space.num_params(trainer.server.x)
         print(f"update space: {trainer.update_space.name} — "
@@ -263,6 +275,11 @@ def main(argv=None):
         reason = trainer.megakernel_fallback_reason
         print("megakernel: fused K-step local loop" if reason == ""
               else f"megakernel: per-step fallback ({reason})")
+    if args.store == "tiered":
+        print(f"tiered store: population host-side "
+              f"({args.store_backend or 'dense'} backend), device peak "
+              f"{trainer.client_store_device_bytes()/1e6:.2f}MB of client "
+              f"state (gather-ahead depth {args.prefetch_depth})")
     if args.resume:
         load_trainer(args.resume, trainer)
         print(f"resumed from {args.resume} at round {trainer.round_idx}")

@@ -112,9 +112,9 @@ def _bf16_trainer(space="head_only", seed=0, **kw):
 
 
 def _state(tr):
-    rows = {f"store/{k}": v for k, v in tr.store.rows.items()}
+    rows = {f"store/{k}": v for k, v in tr.store.all_rows().items()}
     if tr.solver_store is not None:
-        rows.update({f"slots/{k}": v for k, v in tr.solver_store.rows.items()})
+        rows.update({f"slots/{k}": v for k, v in tr.solver_store.all_rows().items()})
     return {**{f"x/{k}": v for k, v in tr.x.items()},
             **{f"c/{k}": v for k, v in tr.c.items()}, **rows}
 

@@ -826,3 +826,81 @@ def test_gemma_w_layers_capture_b5():
     assert swa_ops.LAUNCHES["swa_attention"] == 2 * 4
     server, rows, _ = host_loop_device_rng(spec, data, 3, loss_fn, init)
     assert scanned_vs_host_loop(tr, server, rows)["max_rel"] <= 1e-4
+
+
+# the tiered store's scanned engine: a cohort buffer on the card, the
+# population in host stores
+
+
+def _trainer_state(tr):
+    """x, c, the optimizer's slots and every population row, on the host
+    (the dense engine's device store mirrored, the tiered one flushed)."""
+    tr.sync_host_store()
+    out = {f"x/{k}": v.cpu() for k, v in tr.x.items()}
+    out.update({f"c/{k}": v.cpu() for k, v in tr.c.items()})
+    for name, st in tr._store_families():
+        out.update({f"{name}/{k}": v for k, v in st.all_rows().items()})
+    return out
+
+
+@pytest.mark.parametrize("case", ["quadratics B1", "quadratics B3"])
+def test_captured_tiered_rounds_equal_the_dense_engine(case):
+    """The tiered scanned engine on the card (the cohort buffer, the
+    round's ids read at the slot, each round a replay of its graph)
+    equals the dense scanned engine bitwise, launches and all."""
+    from repro_torch.core import FederatedTrainer
+
+    spec, ds, loss_fn, init = _scan_case(case)
+    runs = {}
+    for store in ("dense", "tiered"):
+        tr = FederatedTrainer(loss_fn, init, spec, ds, seed=0,
+                              use_fused_update=True, device="cuda",
+                              scan_rounds=2, store=store)
+        assert tr.scan_captured
+        ops.reset_launches()
+        tr.run(6)
+        assert tr._graph is not None
+        runs[store] = (_trainer_state(tr), [m["loss"] for m in tr.history],
+                       dict(ops.LAUNCHES))
+        tr.close()
+    (a, la, na), (b, lb, nb) = runs["dense"], runs["tiered"]
+    assert la == lb and na == nb and sum(na.values()) > 0
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_tiered_repairs_a_client_resampled_across_chunks(monkeypatch):
+    """N 10, S 3, chunks of 2: consecutive chunks share clients, whose
+    prefetched rows the previous chunk's write-back (a copy from the card
+    the worker waits on) made stale; ``take`` reads them again, and the
+    run equals the dense engine bitwise."""
+    import numpy as np
+
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.core import store as tstore
+
+    repaired = []
+    real = tstore.refresh_rows
+
+    def counting(prefetched, fresh, stale):
+        repaired.append(int(stale.sum()))
+        real(prefetched, fresh, stale)
+
+    monkeypatch.setattr(tstore, "refresh_rows", counting)
+    spec, ds, loss_fn, init = _scan_case("quadratics B1")
+    states = []
+    for store in ("dense", "tiered"):
+        tr = FederatedTrainer(loss_fn, init, spec, ds, seed=0,
+                              use_fused_update=True, device="cuda",
+                              scan_rounds=2, store=store, prefetch_depth=3)
+        tr.run(12)
+        states.append(_trainer_state(tr))
+        if store == "tiered":
+            plans = [tr._plan_chunk(t, 2) for t in range(2, 12, 2)]
+        tr.close()
+    shared = sum(len(np.intersect1d(a.union, b.union))
+                 for a, b in zip(plans, plans[1:]))
+    assert shared > 0 and sum(repaired) > 0
+    for k in states[0]:
+        assert torch.equal(states[0][k], states[1][k]), k

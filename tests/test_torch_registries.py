@@ -29,36 +29,37 @@ from repro_torch.core import compression as tcomp
 from repro_torch.data import make_paper_fig3, quadratic_loss
 
 # names of repro.core whose registries or engines the port does not have
-# yet: the store backends and the tiered store (A12), the availability
-# models and the async engine with its staleness weightings (A13), the
-# scanned engine and its device sampler (A11)
+# yet: the availability models and the async engine with its staleness
+# weightings (A13)
 NOT_PORTED = {
     "AsyncBufferedEngine", "AvailabilityModel", "AvailabilityTrace",
-    "DenseBackend", "DeviceClientSampler", "Dispatch", "DispatchSimulator",
-    "MemmapBackend", "RecordingAvailability", "StalenessWeighting",
-    "StoreBackend", "TieredClientStore", "TraceAvailability",
-    "availability_names", "device_sample_ids", "make_availability",
-    "make_staleness_weighting", "make_store_backend", "record_trace",
-    "refresh_rows", "register_availability", "register_staleness_weighting",
-    "register_store_backend", "run_rounds", "run_rounds_cohort",
-    "stale_mask", "staleness_weighting_names", "store_backend_names",
+    "Dispatch", "DispatchSimulator", "RecordingAvailability",
+    "StalenessWeighting", "TraceAvailability", "availability_names",
+    "make_availability", "make_staleness_weighting", "record_trace",
+    "register_availability", "register_staleness_weighting",
+    "staleness_weighting_names",
 }
 # the names the port exports, each one of repro.core's
 EXPORTED = (
     "Algorithm", "ClientRoundState", "ClientSampler", "ClientStateStore",
-    "Compressor", "FederatedTrainer", "FullSpace", "HeadOnlySpace",
-    "LoRASpace", "LocalSolver", "Privatizer", "RoundOutput",
-    "ServerOptimizer", "ServerState", "UpdateSpace", "algorithm_names",
-    "client_update", "compressor_names", "federated_round", "get_algorithm",
+    "Compressor", "DenseBackend", "DeviceClientSampler", "FederatedTrainer",
+    "FullSpace", "HeadOnlySpace", "LoRASpace", "LocalSolver",
+    "MemmapBackend", "Privatizer", "RoundOutput", "ServerOptimizer",
+    "ServerState", "StoreBackend", "TieredClientStore", "UpdateSpace",
+    "algorithm_names", "client_update", "compressor_names",
+    "device_sample_ids", "federated_round", "get_algorithm",
     "get_compressor", "get_local_solver", "get_privatizer",
     "get_server_optimizer", "get_update_space", "init_server_state",
-    "local_sgd", "local_solver_names", "make_grad_fn", "privatizer_names",
-    "register_algorithm", "register_compressor", "register_local_solver",
-    "register_privatizer", "register_server_optimizer",
+    "local_sgd", "local_solver_names", "make_grad_fn", "make_store_backend",
+    "privatizer_names", "refresh_rows", "register_algorithm",
+    "register_compressor", "register_local_solver", "register_privatizer",
+    "register_server_optimizer", "register_store_backend",
     "register_update_space", "resolve_compressor", "resolve_local_solver",
     "resolve_privatizer", "resolve_server_optimizer",
     "resolve_update_space", "round_comm_bytes", "run_local_steps",
-    "run_round", "server_optimizer_names", "update_space_names",
+    "run_round", "run_rounds", "run_rounds_cohort",
+    "server_optimizer_names", "stale_mask", "store_backend_names",
+    "update_space_names",
 )
 
 

@@ -139,7 +139,7 @@ def _host_loop(spec, ds, rounds, loss_fn=quadratic_loss, init=_init,
         for name, st in stores.items():
             st.scatter(ids, new[name])
         hist.append({k: float(v) for k, v in out.metrics.items()})
-    return server, {name: st.rows for name, st in stores.items()}, hist
+    return server, {name: st.all_rows() for name, st in stores.items()}, hist
 
 
 def _assert_equal(a, b):
@@ -392,7 +392,7 @@ def test_checkpoint_crosses_engines(tmp_path):
     load_trainer(path, host)
     _assert_equal(a.x, host.x)
     for name, st in host._store_families():
-        _assert_equal(_families(a)[name], st.rows)
+        _assert_equal(_families(a)[name], st.all_rows())
     host.run(2)
     path2 = str(tmp_path / "host.npz")
     save_trainer(path2, host)
@@ -401,7 +401,7 @@ def test_checkpoint_crosses_engines(tmp_path):
     assert b.round_idx == 6
     _assert_equal(host.x, b.x)
     for name, st in host._store_families():
-        _assert_equal(st.rows, _families(b)[name])
+        _assert_equal(st.all_rows(), _families(b)[name])
 
 
 def jax_key(path):

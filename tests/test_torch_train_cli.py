@@ -7,10 +7,9 @@ the CPU at the reduced preset.
     ``load_serving_params``;
   * ``head_only`` through the CLI trains only its targets;
   * ``--list-registries`` prints the port's registries, the reference's
-    names among them;
-  * the flags of engines the port has not yet raise
-    ``NotImplementedError``, never ignored (the scanned engine runs; its
-    tiered store does not);
+    names among them (the store backends too);
+  * the async engine's flags raise ``NotImplementedError``, never
+    ignored (the scanned, pipelined and tiered engines run);
   * ``--scan-rounds`` trains through the scanned engine and logs it.
 """
 import pytest
@@ -18,6 +17,7 @@ import torch
 
 from repro.core import (
     algorithm_names as jax_algorithm_names,
+    store_backend_names as jax_store_backend_names,
     update_space_names as jax_update_space_names,
 )
 from repro_torch.checkpoint import load_serving_params
@@ -62,13 +62,10 @@ def test_list_registries(capsys):
                  for line in capsys.readouterr().out.splitlines())
     assert lines["algorithms"].split() == list(jax_algorithm_names())
     assert lines["update_spaces"].split() == list(jax_update_space_names())
+    assert lines["store_backends"].split() == list(jax_store_backend_names())
 
 
-@pytest.mark.parametrize("flag", [["--pipeline-depth", "1"],
-                                  ["--scan-rounds", "2", "--store", "tiered"],
-                                  ["--async-buffer", "2"],
-                                  ["--store", "tiered"],
-                                  ["--store-backend", "memmap"],
+@pytest.mark.parametrize("flag", [["--async-buffer", "2"],
                                   ["--availability", "uniform"],
                                   ["--staleness-weighting", "polynomial"]])
 def test_unported_engine_flags_raise(flag):

@@ -189,19 +189,10 @@ def test_lm_megakernel_falls_back_loudly(lm_weights):
 
 
 @pytest.mark.parametrize("change", [
-    dict(trainer={"pipeline_depth": 1}),
-    # the dense scanned engine is ported (tests/test_torch_scan_engine.py);
-    # the tiered one is not
-    dict(trainer={"scan_rounds": 4, "store": "tiered"}),
-    dict(trainer={"store": "tiered"}),
+    # the pipelined engine, the tiered store and its backends are ported
+    # (tests/test_torch_store.py, test_torch_tiered.py,
+    # test_torch_pipelined.py); the async engine is not
     dict(trainer={"async_buffer": 2}),
-    # the update spaces are ported (tests/test_torch_update_space.py):
-    # a space under an engine the port has not yet is refused by the
-    # engine; the sharded store backend is not ported
-    dict(trainer={"store_backend": "sharded"}),
-    dict(spec={"update_space": "head_only", "update_targets": "x"},
-         trainer={"pipeline_depth": 1}),
-    dict(trainer={"store_backend": "memmap"}),
 ])
 def test_not_ported_modes_raise(change):
     tds = make_paper_fig3()

@@ -357,7 +357,7 @@ def test_trainer_rounds_match_reference(weights, emnist, model, space,
     assert cj == ct
     assert_trainers_agree(jt, tt, TOL[model])
     # the stores hold delta-shaped rows
-    assert {k: tuple(v.shape[1:]) for k, v in tt.store.rows.items()} == {
+    assert {k: tuple(v.shape[1:]) for k, v in tt.store.all_rows().items()} == {
         k: tuple(v.shape) for k, v in tt.x.items()}
 
 
