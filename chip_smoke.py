@@ -108,6 +108,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
   28. the pipelined host loop bitwise the synchronous one: gemma3-1b at
      phase 10's settings (B5, B1) at depth 1, and Table 5's EMNIST at
      depth 2 with the stale-row repair counted
+  29. the async engine's degenerate limit (M = K = S, always_on,
+     constant) bitwise the sync host loop, launches equal: Table 5's
+     MLP through B1 (5 aggregations) and scaffold_m + int8_ef + server
+     adam + local heavy-ball through B2 (3), phase 13's quadratics
+     through B3 and B4 (3 each), gemma3-1b at 26 layers, seq 2048
+     through B5 and B1 (2), its peak device memory against the plan
+  30. Table 5's MLP through the async engine and B1 under stragglers
+     (lognormal sigma 1.5, 20 % dropout, M 5 of K 10, polynomial 0.5),
+     40 aggregations: best test accuracy, s/aggregation, the staleness
+     histogram, dropped updates, virtual time against the sync loop's,
+     a profiled aggregation's busy share; the tiered store (dense and
+     memmap backends) and a checkpoint with updates in flight and
+     buffered, resumed, bitwise the dense run
+  31. gemma3-1b through ``repro_torch.launch.train.main --async-buffer 2
+     --max-inflight 3 --availability lognormal``: full space, 3
+     aggregations (B5, B1; s/aggregation, peak device memory against the
+     plan); LoRA r 8, 2 aggregations and a checkpoint with updates in
+     flight, resumed by a fresh process bitwise the unbroken run
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; a launch inside a captured CUDA graph counts at each
@@ -966,7 +984,7 @@ def phase_gemma_small():
 
 
 def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
-             subset=None):
+             subset=None, pending: int = 0):
     """Reckoned peak device bytes of an LM phase at cfg's depth: the
     param-sized bf16 trees resident at once (x, c, the dy and dc sums, the
     client's c_i, c - c_i, its working copy y, and the grads or, after the
@@ -979,7 +997,13 @@ def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
     that trains a subset instead: the frozen bf16 base, the targets
     merged and their bf16 gradients (2 target-sized trees), the merge's
     and the projection's fp32 temporaries of the largest target (3), and
-    the 8 trees above at the delta tree's size."""
+    the 8 trees above at the delta tree's size.
+
+    ``pending`` > 0 plans the async engine (``client_parallel``): its
+    dy and dc sums are fp32 (2 trees more than bf16 sums), and each
+    pending update keeps its dy and dc on the card (2 trees each; at most
+    ``max_inflight + buffer_size - 1`` pending while an aggregation
+    runs)."""
     from repro_torch.models.model import count_params_analytic
 
     n = count_params_analytic(cfg)
@@ -995,7 +1019,11 @@ def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
     if subset is not None:
         n_t, delta_bytes = subset
         trees = tree + 2 * 2 * n_t + 3 * 2 * largest + 8 * delta_bytes
+        if pending:
+            trees += 2 * delta_bytes + pending * 2 * delta_bytes
         return n, tree, trees + act + temps
+    if pending:
+        temps += 2 * tree + pending * 2 * tree
     return n, tree, 8 * tree + slot_bytes * n + act + temps
 
 
@@ -1057,15 +1085,18 @@ def _device_time_ms(ev) -> float:
     return us / 1e3
 
 
-def _profile_round(tr, tag: str, kernels=(), want=None, tries=1) -> None:
+def _profile_round(tr, tag: str, kernels=(), want=None, tries=1):
     """One more round of trainer ``tr`` under the profiler: logs the wall
     time, the device busy share, the top device times by kernel and the
     device time of each kernel whose name holds one of ``kernels``; writes
     the table to ``OUT/<tag>_profile.txt``. ``want`` maps a name to the
-    launches a round makes: a profile that saw fewer lost events (on an
-    H100 a quadratic round's profile lost its first B3 launch and its
-    upload of A in one run of three), and another round is profiled, at
-    most ``tries`` in all; the last is logged either way."""
+    launches a round makes (or is a function of the launch counts the
+    profiled round made, for a round whose launches vary): a profile that
+    saw fewer lost events (on an H100 a quadratic round's profile lost its
+    first B3 launch and its upload of A in one run of three), and another
+    round is profiled, at most ``tries`` in all; the last is logged
+    either way. Returns the busy share (None when the profiler reported
+    no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1077,21 +1108,24 @@ def _profile_round(tr, tag: str, kernels=(), want=None, tries=1) -> None:
             # 1-element kernel goes first
             torch.ones(1, device="cuda").add_(1)
             torch.cuda.synchronize()
+            before = launches()
             t0 = time.perf_counter()
             tr.run_round()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        made = {k: v - before[k] for k, v in launches().items()}
+        want_now = want(made) if callable(want) else want
         avgs = prof.key_averages()
         # device-side events only (kernels, copies): CPU ops also carry
         # the device time of the kernels they launched
         dev_events = [e for e in avgs if _device_time_ms(e) > 0
                       and "CUDA" in str(getattr(e, "device_type", ""))]
         seen = {k: sum(e.count for e in dev_events if k in e.key)
-                for k in (want or {})}
-        if all(seen[k] >= n for k, n in (want or {}).items()):
+                for k in (want_now or {})}
+        if all(seen[k] >= n for k, n in (want_now or {}).items()):
             break
         log(f"{tag} profiled round {attempt + 1} of {tries} lost events: "
-            f"launches seen {seen}, made {want}")
+            f"launches seen {seen}, made {want_now}")
     busy = sum(_device_time_ms(e) for e in dev_events) / 1e3
     top = sorted(dev_events, key=_device_time_ms, reverse=True)[:8]
     if busy > 0:
@@ -1114,6 +1148,7 @@ def _profile_round(tr, tag: str, kernels=(), want=None, tries=1) -> None:
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / f"{tag}_profile.txt").write_text(avgs.table(sort_by=sort_key,
                                                        row_limit=40))
+    return busy / wall if busy > 0 else None
 
 
 def phase_lm_full(result):
@@ -1480,7 +1515,8 @@ class _RoundLog:
             m = inner(trainer)
             torch.cuda.synchronize()
             sec = time.perf_counter() - t0
-            rows.append(dict(m, seconds=sec))
+            rows.append(dict(m, seconds=sec,
+                             peak_bytes=torch.cuda.max_memory_allocated()))
             log(f"{tag} round {m['round']}: loss {m['loss']:.4f}, drift "
                 f"{m['drift']:.4e}, {sec:.3f} s, {tokens / sec:.1f} tokens/s"
                 f" ({tokens} tokens), peak device memory "
@@ -3540,6 +3576,429 @@ def phase_pipelined(result):
         controller.refresh_rows = real
     torch.cuda.empty_cache()
 
+# the async buffered engine: its degenerate limit against the sync loop
+# (phase 29), Table 5 under stragglers (phase 30), gemma3-1b through the
+# entry point (phase 31)
+SYNC_KEYS = ("loss", "drift", "update_norm", "bytes_up", "bytes_down",
+             "round")
+# the JAX package's async test's straggler model: lognormal latency, sigma
+# 1.5, a dispatch dies with probability 0.2
+STRAGGLER = dict(availability="lognormal",
+                 availability_kwargs=dict(seed=1, sigma=1.5, dropout=0.2))
+ASYNC_AGGS, ASYNC_EVAL_EVERY, ASYNC_CHECK = 40, 10, 10
+# phase 31's engine flags: M 2 of K 3 in flight, lognormal stragglers
+ASYNC_GEMMA = ("--async-buffer", "2", "--max-inflight", "3",
+               "--availability", "lognormal", "--latency-sigma", "1.0")
+
+
+def _degenerate(tag, make, rounds, want, state=trainer_state):
+    """Run ``make()`` (the sync host loop) and ``make(async_buffer=S,
+    max_inflight=S)`` (always_on, constant) ``rounds`` rounds each, the
+    launch counts set to 0 before each and read after: raises unless the
+    two states (``state(tr)``), the sync keys of the histories and the
+    launches are equal, and the launches are ``want`` (a dict of nonzero
+    counts). Logs s/round of both. Returns the async run's launches and
+    its trainer's peak device memory above what was held before it."""
+    import torch
+
+    runs = {}
+    for name in ("sync", "async"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        tr = make() if name == "sync" else make(
+            async_buffer=make.num_sampled, max_inflight=make.num_sampled,
+            availability="always_on", staleness_weighting="constant")
+        if tr.async_active != (name == "async"):
+            raise AssertionError(f"{tag}: async_active {tr.async_active}")
+        reset_launches()
+        secs = []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run_round()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        n = launches()
+        peak = torch.cuda.max_memory_allocated() - held
+        runs[name] = (state(tr), [{k: m[k] for k in SYNC_KEYS}
+                                  for m in tr.history], n, peak)
+        log(f"async degenerate {tag}, {name}: s/round "
+            + ", ".join(f"{v:.4f}" for v in secs) + f"; peak device memory "
+            f"{peak / 1e9:.2f} GB above the {held / 1e9:.2f} GB held; "
+            f"launches {n}")
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+    (a, ha, na, _), (b, hb, nb, peak) = runs["sync"], runs["async"]
+    apart = _apart(a, b)
+    log(f"async degenerate {tag}: {len(apart)} of {len(a)} leaves apart "
+        f"from the sync loop (x, c, optimizer slots, every row family); "
+        f"sync keys of the history equal {ha == hb}; launches equal "
+        f"{na == nb}")
+    if apart or ha != hb or na != nb or na != _want_launches(**want):
+        raise AssertionError(f"async degenerate {tag}: apart {apart[:5]}, "
+                             f"launches {na} / {nb}, want {want}")
+    return nb, peak
+
+
+def _maker(fn, num_sampled):
+    """``fn`` as the trainer factory of :func:`_degenerate`."""
+    fn.num_sampled = num_sampled
+    return fn
+
+
+def phase_async_degenerate(ds, result):
+    """Phase 29: the async engine's degenerate limit (M = K = S,
+    always_on, constant) bitwise the port's sync host loop on the card,
+    with the same launches: Table 5's EMNIST MLP (N 50, S 10, K 25, batch
+    80, eta_l 0.3, similarity 0), SCAFFOLD through B1, 5 aggregations;
+    scaffold_m + int8_ef + server adam + local heavy-ball through B2, 3;
+    phase 13's quadratics (d 1024, S 4, K 10, ``use_megakernel``) through
+    B3 and, local heavy-ball, B4, 3; gemma3-1b at its published widths
+    (26 layers, bf16, seq 2048, N 4, S 2, K 2, batch 1) through B5 and
+    B1, 2, its peak device memory against ``_lm_plan`` with the pending
+    updates."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.data import EmnistLikeFederated, quadratic_loss
+
+    data = EmnistLikeFederated(similarity_pct=0.0, **EMNIST)
+    lb = data.local_batch_size(0.2)
+    for tag, change, key, path, rounds in (
+            ("table 5 scaffold", dict(algorithm="scaffold"),
+             "scaffold_update", "b1_paths", 5),
+            ("table 5 scaffold_m int8_ef adam heavy-ball",
+             dict(algorithm="scaffold_m", compress="int8_ef",
+                  server_optimizer="adam", local_solver="momentum",
+                  local_momentum=0.9), "scaffold_momentum_update",
+             "b2_paths", 3)):
+        spec = FedRoundSpec(local_batch=lb, **EMNIST_SPEC, **change)
+        n, _ = _degenerate(tag, _maker(partial(_mlp_trainer, spec, data),
+                                       spec.num_sampled), rounds,
+                           {key: rounds * spec.num_sampled
+                            * spec.local_steps})
+        result.setdefault(path, {})[f"async degenerate {tag}"] = n[key]
+    del data
+    for tag, change, key, path in (
+            ("quadratics B3", dict(algorithm="scaffold"),
+             "scaffold_local_loop", "b3_paths"),
+            ("quadratics B4", dict(algorithm="scaffold_m", eta_g=0.1,
+                                   local_solver="momentum",
+                                   local_momentum=0.9),
+             "scaffold_momentum_local_loop", "b4_paths")):
+        spec = FedRoundSpec(num_clients=20, num_sampled=4, local_steps=10,
+                            local_batch=1, eta_l=0.1, use_megakernel=True,
+                            **change)
+        make = partial(FederatedTrainer, quadratic_loss,
+                       lambda gen: {"x": torch.ones(ds.dim)}, spec, ds,
+                       seed=0, use_fused_update=True, device="cuda")
+        n, _ = _degenerate(tag, _maker(make, spec.num_sampled), 3,
+                           {key: 3 * spec.num_sampled})
+        result.setdefault(path, {})[f"async degenerate {tag}"] = n[key]
+
+    seq_len, rounds = 2048, 2
+    spec = FedRoundSpec(algorithm="scaffold", num_clients=4, num_sampled=2,
+                        local_steps=2, local_batch=1, eta_l=0.01)
+    cfg, _, tree = _lm_fit(spec, seq_len, arch="gemma3-1b",
+                           chunk=get_config("gemma3-1b").vocab_size // 16)
+    if cfg.num_layers != get_config("gemma3-1b").num_layers:
+        raise AssertionError(f"async gemma: depth cut to {cfg.num_layers}")
+    n_w = cfg.pattern_for_layers().count("W")
+    steps = spec.num_sampled * spec.local_steps
+    pending = 2 * spec.num_sampled - 1
+    _, _, plan = _lm_plan(cfg, seq_len, 1, pending=pending)
+
+    def lm_state(tr):
+        # x, c on the host; the dense store's own rows (not copied)
+        return {**{f"x/{k}": v.cpu() for k, v in tr.x.items()},
+                **{f"c/{k}": v.cpu() for k, v in tr.c.items()},
+                **{f"c_i/{k}": v for k, v in tr.store.all_rows().items()}}
+
+    n, peak = _degenerate(
+        "gemma3-1b", _maker(partial(_lm_trainer, cfg, spec, seq_len),
+                            spec.num_sampled), rounds,
+        {"swa_attention": n_w * steps * rounds,
+         "scaffold_update": steps * rounds}, state=lm_state)
+    log(f"async degenerate gemma3-1b: peak device memory {peak / 1e9:.2f} GB"
+        f" above what was held, the plan {plan / 1e9:.2f} GB (8 bf16 trees, "
+        f"the fp32 dy and dc sums, {pending} pending updates' dy and dc at "
+        f"{tree / 1e9:.2f} GB a tree, activations and temporaries)")
+    result.setdefault("async", {})["gemma degenerate peak"] = (peak, plan)
+    result.setdefault("b5_paths", {})["async degenerate gemma3-1b"] = n[
+        "swa_attention"]
+    result.setdefault("b1_paths", {})["async degenerate gemma3-1b"] = n[
+        "scaffold_update"]
+
+
+def _sync_virtual_time(model, num_clients, num_sampled, rounds, seed):
+    """The sync baseline's virtual duration under ``model``: a round
+    waits for its cohort's slowest client (``benchmarks/bench_async.py``'s
+    ``_sync_virtual_time``: dropout excluded, the sync loop re-waits),
+    the cohorts drawn as the sync trainer's sampler draws them."""
+    import numpy as np
+
+    total, k = 0.0, {}
+    rng = np.random.default_rng(seed)
+    for _ in range(rounds):
+        cohort = rng.choice(num_clients, size=num_sampled, replace=False)
+        total += max(model.fate(int(c), k.setdefault(int(c), 0))[0]
+                     for c in cohort)
+        for c in cohort:
+            k[int(c)] += 1
+    return total
+
+
+def phase_async_stragglers(result):
+    """Phase 30: Table 5's EMNIST MLP (N 50, S 10, K 25, batch 80, eta_l
+    0.3, similarity 0) through the async engine and B1 under stragglers:
+    lognormal latency (sigma 1.5) with 20 % dropout, M 5 of K 10 in
+    flight, polynomial weighting (alpha 0.5), 40 aggregations. Logs the
+    best test accuracy every 10 aggregations, s/aggregation, the summed
+    staleness histogram, the dropped updates, the virtual time against
+    the sync loop's under the same latency model, and the card-busy share
+    of a profiled aggregation. The tiered store over the dense and memmap
+    backends, and a checkpoint taken after 5 aggregations with updates in
+    flight and buffered, then resumed in a fresh trainer, must equal the
+    dense run's first 10 aggregations bitwise."""
+    import torch
+
+    from repro_torch.checkpoint import load_trainer, save_trainer
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.core import make_availability
+    from repro_torch.data import EmnistLikeFederated
+    from repro_torch.models import simple
+
+    data = EmnistLikeFederated(similarity_pct=0.0, **EMNIST)
+    tb = data.test_batch(device="cuda")
+    spec = FedRoundSpec(algorithm="scaffold",
+                        local_batch=data.local_batch_size(0.2), **EMNIST_SPEC)
+    kw = dict(async_buffer=5, max_inflight=10, staleness_weighting="polynomial",
+              staleness_kwargs=dict(alpha=0.5), **STRAGGLER)
+    tr = _mlp_trainer(spec, data, **kw)
+    reset_launches()
+    secs, accs, snap = [], [], None
+    for a in range(ASYNC_AGGS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.run_round()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if not math.isfinite(m["loss"]):
+            raise AssertionError(f"async stragglers: aggregation {a + 1} {m}")
+        if a + 1 == ASYNC_CHECK:
+            snap = (trainer_state(tr), _history(tr))
+        if (a + 1) % ASYNC_EVAL_EVERY == 0:
+            accs.append(simple.accuracy(simple.mlp_logits, tr.x, tb))
+    n = launches()
+    dispatched = sum(h["dispatched"] for h in tr.history)
+    want = _want_launches(scaffold_update=dispatched * spec.local_steps)
+    hist = [0] * max(len(h["staleness_hist"]) for h in tr.history)
+    for h in tr.history:
+        for tau, c in enumerate(h["staleness_hist"]):
+            hist[tau] += c
+    sim_time = tr.history[-1]["sim_time"]
+    model = make_availability("lognormal", seed=1, sigma=1.5)
+    sync_time = _sync_virtual_time(model, spec.num_clients,
+                                   spec.num_sampled, ASYNC_AGGS, seed=0)
+    rec = dict(s_agg=statistics.median(secs[1:]), best=max(accs),
+               hist=hist, dropped=tr.async_engine.dropped_total,
+               dispatched=dispatched,
+               sim_rounds_per_s=ASYNC_AGGS / sim_time,
+               sync_rounds_per_s=ASYNC_AGGS / sync_time)
+    log(f"async stragglers (table 5 MLP, N 50, M 5 of K 10, lognormal sigma "
+        f"1.5, dropout 0.2, polynomial 0.5): best test accuracy "
+        f"{rec['best']:.4f} (every {ASYNC_EVAL_EVERY} aggregations: "
+        + ", ".join(f"{v:.3f}" for v in accs)
+        + f"); s/aggregation median of 2-{ASYNC_AGGS} {rec['s_agg']:.4f} "
+        f"(first {secs[0]:.3f}); {dispatched} dispatched, "
+        f"{rec['dropped']} dropped; staleness histogram {hist} (sum "
+        f"{sum(hist)} = {ASYNC_AGGS} x M 5); virtual time {sim_time:.3f}: "
+        f"{rec['sim_rounds_per_s']:.4f} aggregations a virtual second, the "
+        f"sync loop {sync_time:.3f} for {ASYNC_AGGS} rounds of S 10 under "
+        f"the same latencies ({rec['sync_rounds_per_s']:.4f} rounds a "
+        f"virtual second); launches {n}")
+    if (n != want or sum(hist) != ASYNC_AGGS * 5 or not rec["dropped"]
+            or not max(accs) > 0.10):
+        raise AssertionError(f"async stragglers: launches {n} vs {want}, "
+                             f"hist {hist}, accuracies {accs}")
+    result.setdefault("b1_paths", {})["async stragglers"] = n[
+        "scaffold_update"]
+    rec["busy"] = _profile_round(
+        tr, "async_stragglers", kernels=("scaffold_update",),
+        want=lambda made: {"scaffold_update_kernel":
+                           made["scaffold_update"]}, tries=3)
+    result.setdefault("async", {})["stragglers"] = rec
+    tr.close()
+    del tr
+
+    ref_state, ref_hist = snap
+    checks = {}
+    for name, extra in (("tiered dense", dict(store="tiered")),
+                        ("tiered memmap", dict(store="tiered",
+                                               store_backend="memmap"))):
+        t = _mlp_trainer(spec, data, **kw, **extra)
+        reset_launches()
+        t.run(ASYNC_CHECK)
+        n = launches()
+        checks[name] = (_apart(ref_state, trainer_state(t)),
+                        _history(t) == ref_hist)
+        result["b1_paths"][f"async stragglers {name}"] = n["scaffold_update"]
+        t.close()
+    ckpt = OUT / "async_ckpt"
+    part = _mlp_trainer(spec, data, **kw)
+    part.run(ASYNC_CHECK // 2)
+    eng = part.async_engine
+    while not eng._buffer:
+        if eng.step() is not None:
+            raise AssertionError("async stragglers: an aggregation fired "
+                                 "before an update was buffered")
+    pending = (len(eng._inflight), len(eng._buffer))
+    save_trainer(str(ckpt), part)
+    part.close()
+    resumed = _mlp_trainer(spec, data, **kw)
+    load_trainer(str(ckpt) + ".npz", resumed)
+    resumed.run(ASYNC_CHECK - ASYNC_CHECK // 2)
+    checks["resumed"] = (_apart(ref_state, trainer_state(resumed)),
+                         _history(resumed) == ref_hist[ASYNC_CHECK // 2:])
+    resumed.close()
+    (OUT / "async_ckpt.npz").unlink()
+    for name, (apart, same) in checks.items():
+        log(f"async stragglers, {name}: {len(apart)} of {len(ref_state)} "
+            f"leaves apart from the dense run after {ASYNC_CHECK} "
+            f"aggregations; history equal {same}"
+            + (f" (checkpoint after {ASYNC_CHECK // 2} aggregations and "
+               f"the steps to a buffered update: {pending[0]} in flight, "
+               f"{pending[1]} buffered)" if name == "resumed" else ""))
+        if apart or not same:
+            raise AssertionError(f"async stragglers {name}: {apart[:5]}")
+    del data, tb
+    torch.cuda.empty_cache()
+
+
+def phase_async_gemma(result):
+    """Phase 31: gemma3-1b at its published widths (26 layers, seq 2048,
+    N 4, S 2, K 2, batch 1) through ``repro_torch.launch.train.main`` with
+    ``--async-buffer 2 --max-inflight 3 --availability lognormal
+    --latency-sigma 1.0``: full space, 3 aggregations (B5 on every "W"
+    layer, B1 on every local step), s/aggregation and peak device memory
+    against ``_lm_plan`` with the pending updates. Then LoRA r 8 with the
+    same flags: 2 aggregations and a checkpoint with updates in flight,
+    the same trainer's third aggregation (the unbroken run), and a fresh
+    process that resumes from the checkpoint and runs aggregation 3,
+    bitwise equal to it."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    base = get_config("gemma3-1b")
+    seq_len, chunk = 2048, base.vocab_size // 16
+    cfg = dataclasses.replace(base, loss_chunk_vocab=chunk)
+    n_w, K, M, inflight = cfg.pattern_for_layers().count("W"), 2, 2, 3
+    _, tree, plan = _lm_plan(cfg, seq_len, 1, pending=M + inflight - 1)
+
+    def run(tag, rounds, *extra, after=None):
+        reset_launches()
+        t0 = time.perf_counter()
+        with _RoundLog(f"async gemma, {tag}", M * K * seq_len) as rl:
+            tr = train.main(_train_argv("gemma3-1b", seq_len, rounds, chunk,
+                                        *ASYNC_GEMMA, *extra))
+            if after is not None:
+                after(tr)
+        counts = launches()
+        dispatched = sum(h["dispatched"] for h in tr.history)
+        # every dispatch runs its K steps when dispatched; the entry
+        # point's eval after each of its rounds runs the W layers once
+        want = _want_launches(
+            swa_attention=n_w * (K * dispatched + rounds),
+            scaffold_update=K * dispatched)
+        log(f"async gemma, {tag}: train.main {time.perf_counter() - t0:.1f} s"
+            f" in all; {dispatched} dispatches, dropped "
+            f"{tr.async_engine.dropped_total}, staleness "
+            f"{[h['staleness_hist'] for h in tr.history]}; launches "
+            f"{counts}; want swa_attention = {n_w} W layers x (K {K} x "
+            f"dispatches + {rounds} evals), scaffold_update = K x dispatches")
+        if counts != want or not tr.async_active:
+            raise AssertionError(f"async gemma {tag}: launches {counts} vs "
+                                 f"{want}")
+        for key, path in (("swa_attention", "b5_paths"),
+                          ("scaffold_update", "b1_paths")):
+            paths = result.setdefault(path, {})
+            paths["async gemma3-1b"] = (paths.get("async gemma3-1b", 0)
+                                        + counts[key])
+        return tr, rl.rows
+
+    tr, rows = run("full space, 3 aggregations", 3)
+    peak = max(r["peak_bytes"] for r in rows)
+    secs = [r["seconds"] for r in rows]
+    log(f"async gemma, full space: s/aggregation "
+        + ", ".join(f"{v:.3f}" for v in secs) + f"; peak device memory "
+        f"{peak / 1e9:.2f} GB against the plan {plan / 1e9:.2f} GB ("
+        f"{M + inflight - 1} pending updates' dy and dc at {tree / 1e9:.2f} "
+        f"GB a tree); client_store_device_bytes (the reference's reckoning, "
+        f"(K + M) rows) {tr.client_store_device_bytes() / 1e9:.2f} GB")
+    result.setdefault("async", {})["gemma"] = dict(
+        s_agg=statistics.median(secs[1:]), peak=peak, plan=plan)
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+    lora = ("--update-space", "lora", "--lora-rank", str(LORA_RANK))
+    ckpt, ckpt3 = OUT / "async_lora_ckpt", OUT / "async_lora_resumed"
+    unbroken = {}
+
+    def third(tr):
+        eng = tr.async_engine
+        unbroken["pending"] = (len(eng._inflight), len(eng._buffer))
+        tr.run_round()  # the unbroken run's aggregation 3
+        unbroken.update({f"x/{k}": v.cpu() for k, v in tr.x.items()})
+        unbroken.update({f"c/{k}": v.cpu() for k, v in tr.c.items()})
+
+    tr, rows = run("lora, 2 aggregations, --checkpoint, aggregation 3", 2,
+                   *lora, "--checkpoint", str(ckpt), after=third)
+    pending = unbroken.pop("pending")
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+    if not pending[0]:
+        raise AssertionError(f"async gemma lora: nothing in flight at the "
+                             f"checkpoint ({pending})")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train",
+         *_train_argv("gemma3-1b", seq_len, 1, chunk, *ASYNC_GEMMA, *lora,
+                      "--resume", str(ckpt) + ".npz", "--checkpoint",
+                      str(ckpt3))],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=900)
+    log(f"async gemma lora: a fresh process resumed and ran aggregation 3 "
+        f"in {time.perf_counter() - t0:.1f} s (exit {proc.returncode}): "
+        + " | ".join(proc.stdout.strip().splitlines()[-4:]))
+    if proc.returncode:
+        raise AssertionError(f"async gemma lora resume: {proc.stderr[-2000:]}")
+    with np.load(str(ckpt3) + ".npz") as data:
+        resumed = {k: data[k] for k in unbroken}
+    apart = [k for k, v in unbroken.items()
+             if not np.array_equal(resumed[k].view(np.uint8),
+                                   v.numpy().view(np.uint8))]
+    log(f"async gemma lora: checkpoint after 2 aggregations with "
+        f"{pending[0]} in flight and {pending[1]} buffered; the resumed "
+        f"process's aggregation 3 has {len(apart)} of {len(unbroken)} x and c"
+        f" leaves apart from the unbroken run's (want 0, bitwise)")
+    if apart:
+        raise AssertionError(f"async gemma lora resume: apart {apart[:5]}")
+    for path in (ckpt, ckpt3):
+        Path(str(path) + ".npz").unlink()
+
 
 def main() -> int:
     """Run every phase; 0 when all passed."""
@@ -3576,7 +4035,6 @@ def main() -> int:
     phase_quadratics(ds, result)
     phase_quad_heavy_ball(ds, result)
     phase_quad_sched_adam(ds, result)
-    del ds
     phase_emnist_table5(result)
     phase_emnist_codecs(result)
     phase_lora_llama(result)
@@ -3590,6 +4048,10 @@ def main() -> int:
     phase_tiered_emnist(result)
     phase_population(result)
     phase_pipelined(result)
+    phase_async_degenerate(ds, result)
+    del ds
+    phase_async_stragglers(result)
+    phase_async_gemma(result)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     # B1-B4 are bound by bytes and no one PyTorch call computes them
     for key in ("b1", "b2", "b3", "b4", "b5"):

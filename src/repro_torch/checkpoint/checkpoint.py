@@ -6,8 +6,11 @@ An archive holds one array a leaf under its "/"-joined path and a
 trainer's tree is ``x``, ``c``, ``opt_state``, ``store`` (every client's
 ``c_i`` row), ``residuals`` and ``solver_slots`` (their rows, where the
 codec or the solver keeps them) and, under an update space that trains a
-subset, the frozen ``base``; ``extra`` holds the round counter, the host
-RNG states and the space's selection. The port's trees are flat dicts
+subset, the frozen ``base``, and under the async engine ``async``: every
+pending update's payload rows stacked (in flight, then buffered) and the
+per-client dispatch counters; ``extra`` holds the round counter, the
+host RNG states, the space's selection and, async, the pending updates'
+dispatch records and the engine's counters. The port's trees are flat dicts
 keyed by the reference's leaf paths, so a key reads the same in both
 packages and a checkpoint crosses them, and the engines and stores: a
 scanned trainer's device store is synced to its host stores on save and
@@ -160,14 +163,23 @@ def save_trainer(path: str, trainer):
     if trainer.update_space.trains_subset:
         extra["update_space"] = trainer.update_space.checkpoint_meta(
             trainer.spec)
-    save_checkpoint(path, _trainer_tree(trainer), extra=extra)
+    tree = _trainer_tree(trainer)
+    engine = trainer.async_engine
+    if engine is not None:
+        # the pending updates ride along, so a resume replays the same
+        # events without recomputing them
+        tree["async"] = engine.checkpoint_tree()
+        extra["async"] = engine.checkpoint_meta()
+    save_checkpoint(path, tree, extra=extra)
 
 
 def load_trainer(path: str, trainer):
     """Restore a ``save_trainer`` checkpoint into a trainer built with
     the same spec, model and dataset. Raises when the checkpoint was
-    trained in another update space, or when its frozen base differs by
-    one bit from the trainer's (the deltas would land on other weights)."""
+    trained in another update space, when its frozen base differs by
+    one bit from the trainer's (the deltas would land on other weights),
+    or when the trainer runs the async engine and the checkpoint has no
+    async state (a synchronous trainer wrote it)."""
     flat, extra = _read_checkpoint(path)
     saved_space = extra.get("update_space", {"name": "full"})["name"]
     if saved_space != trainer.update_space.name:
@@ -176,6 +188,14 @@ def load_trainer(path: str, trainer):
             f"the trainer is configured for {trainer.update_space.name!r}; "
             f"restore into a matching FedRoundSpec")
     template = _trainer_tree(trainer, rows=False)
+    engine = trainer.async_engine
+    if engine is not None:
+        if "async" not in extra:
+            raise ValueError(
+                "checkpoint has no async-engine state: it was saved by a "
+                "synchronous trainer; restore into a matching configuration")
+        # (P, ...) with P, the pending count, from the checkpoint itself
+        template["async"] = engine.pending_template(extra["async"])
     if "base" in template:
         for key, cur in trainer.base_params.items():
             saved = _unflatten_into(flat, cur, f"base/{key}")
@@ -202,6 +222,8 @@ def load_trainer(path: str, trainer):
     trainer.round_idx = int(extra.get("round", 0))
     if "host_rng" in extra:
         trainer.set_host_rng_state(extra["host_rng"])
+    if engine is not None:
+        engine.restore(tree["async"], extra["async"])
     return trainer
 
 

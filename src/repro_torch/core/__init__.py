@@ -7,8 +7,11 @@
   federated_round  — the reference's tuple shim over run_round
   client_update    — one client's K corrected local steps
   FederatedTrainer — the host controller: the synchronous and pipelined
-                     loops and the scanned engine (``scan_rounds``), over
-                     a dense or tiered population store
+                     loops, the scanned engine (``scan_rounds``) and the
+                     async buffered engine (``async_buffer``), over a
+                     dense or tiered population store
+  AsyncBufferedEngine, DispatchSimulator — the async engine and its
+                     virtual-time event core
   device_sample_ids, DeviceClientSampler — the scanned engine's cohorts
 
 Registries, each listable and open to user entries: ``Algorithm``
@@ -17,8 +20,10 @@ Registries, each listable and open to user entries: ``Algorithm``
 ``Privatizer`` (clip, Gaussian noise, the ``dp_epsilon`` accountant),
 ``UpdateSpace`` (``full``, ``lora``, ``head_only``: the tree the engine
 trains) and ``StoreBackend`` (``dense``, ``memmap``, ``sharded``: where
-the population's rows live). The JAX package's availability and
-staleness-weighting registries are not ported yet.
+the population's rows live), ``AvailabilityModel`` (``always_on``,
+``uniform``, ``lognormal``, ``trace``: when dispatched clients report
+back, or die) and ``StalenessWeighting`` (``constant``, ``polynomial``,
+``cutoff``: the weight of a stale buffered update).
 """
 from repro_torch.core.api import (  # noqa: F401
     Algorithm,
@@ -36,6 +41,25 @@ from repro_torch.core.api import (  # noqa: F401
     run_rounds,
     run_rounds_cohort,
     server_optimizer_names,
+)
+from repro_torch.core.async_engine import (  # noqa: F401
+    AsyncBufferedEngine,
+    StalenessWeighting,
+    make_staleness_weighting,
+    register_staleness_weighting,
+    staleness_weighting_names,
+)
+from repro_torch.core.availability import (  # noqa: F401
+    AvailabilityModel,
+    AvailabilityTrace,
+    Dispatch,
+    DispatchSimulator,
+    RecordingAvailability,
+    TraceAvailability,
+    availability_names,
+    make_availability,
+    record_trace,
+    register_availability,
 )
 from repro_torch.core.compression import (  # noqa: F401
     Compressor,

@@ -68,7 +68,15 @@ the chunk. The captured round reads its global ids and cohort rows at
 the draw-ahead slot, as it reads its draws; the worker is drained before
 a capture, so no CUDA call from it can meet the capture.
 
-The async engine is not ported yet and raises ``NotImplementedError``.
+Async mode (``async_buffer=M``, the reference's DESIGN.md §14) hands
+the rounds to ``core.async_engine.AsyncBufferedEngine``: up to
+``max_inflight`` dispatches in flight against the clients the
+availability model says are online, one server step each time M
+updates have landed, weighted by their staleness. One round is one
+aggregation. It runs over the same stores, sampler and data stream, so
+with M = K = S, ``always_on`` and ``constant`` it is this loop bit for
+bit. It refuses the scanned and pipelined engines, whole-batch
+algorithms and ``client_sequential``, as the reference does.
 """
 from __future__ import annotations
 
@@ -89,6 +97,7 @@ from repro_torch.core.api import (
     scan_cohort_round,
     scan_round,
 )
+from repro_torch.core.async_engine import AsyncBufferedEngine
 from repro_torch.core.compression import get_compressor, round_comm_bytes
 from repro_torch.core.local_solver import (
     get_local_solver,
@@ -253,17 +262,30 @@ class FederatedTrainer:
     gather-ahead; the scanned engine then holds only the cohort buffer of
     min(N, R * S) rows on the device. Trajectories are the dense store's
     bit for bit.
+
+    ``async_buffer=M > 0`` runs the async buffered engine (one round an
+    aggregation of M updates) with up to ``max_inflight`` dispatches in
+    flight (0: ``num_sampled``), clients online and late as the
+    ``availability`` model says (a registered name with
+    ``availability_kwargs``, or an ``AvailabilityModel``), updates
+    weighted by ``staleness_weighting`` (a name with ``staleness_kwargs``,
+    or a ``StalenessWeighting``).
     """
 
     def __init__(self, loss_fn, init_params, spec, dataset, *, seed: int = 0,
                  use_fused_update: bool = False, device="cuda",
                  pipeline_depth: int = 0, scan_rounds: int = 0,
                  store: str = "dense", store_backend: str = "",
-                 prefetch_depth: int = 2, async_buffer: int = 0):
+                 prefetch_depth: int = 2, async_buffer: int = 0,
+                 max_inflight: int = 0, availability: Any = "always_on",
+                 availability_kwargs: Optional[Dict[str, Any]] = None,
+                 staleness_weighting: Any = "constant",
+                 staleness_kwargs: Optional[Dict[str, Any]] = None):
         assert pipeline_depth >= 0, pipeline_depth
         assert scan_rounds >= 0, scan_rounds
         assert store in ("dense", "tiered"), store
         assert prefetch_depth >= 1, prefetch_depth
+        assert async_buffer >= 0, async_buffer
         if async_buffer and scan_rounds:
             raise ValueError(
                 "async_buffer is incompatible with scan_rounds: the scanned "
@@ -272,9 +294,6 @@ class FederatedTrainer:
             raise ValueError(
                 "async_buffer is incompatible with pipeline_depth: the async "
                 "engine owns its own dispatch overlap")
-        if async_buffer:
-            raise NotImplementedError(
-                "async engine (async_buffer): not ported yet")
         self.device = resolve_device(device)
         self.spec = spec
         self.dataset = dataset
@@ -383,6 +402,14 @@ class FederatedTrainer:
         self._tiered_scan = False
         if self._scan_mode:
             self._setup_scan(seed)
+        self.async_engine: Optional[AsyncBufferedEngine] = None
+        if async_buffer:
+            self.async_engine = AsyncBufferedEngine(
+                self, buffer_size=async_buffer, max_inflight=max_inflight,
+                availability=availability,
+                availability_kwargs=availability_kwargs,
+                staleness_weighting=staleness_weighting,
+                staleness_kwargs=staleness_kwargs)
 
     def _scan_incompatibility(self) -> Optional[str]:
         """Why this config can't run the scanned engine (None = it can);
@@ -401,6 +428,11 @@ class FederatedTrainer:
     def scan_active(self) -> bool:
         """True when rounds run through the scanned engine."""
         return self._scan_mode
+
+    @property
+    def async_active(self) -> bool:
+        """True when rounds run through the async buffered engine."""
+        return self.async_engine is not None
 
     # -- views of the server state ----------------------------------------
 
@@ -495,9 +527,14 @@ class FederatedTrainer:
         the full ``(N, ...)`` store under the dense scanned engine; the
         cohort buffer's ``min(N, R * S)`` rows under the tiered one
         (``chunk_rounds`` overrides ``scan_rounds``); one gathered cohort
-        a round in flight under the host loop (pipelined: depth + 1)."""
+        a round in flight under the host loop (pipelined: depth + 1); the
+        reference's reckoning of the pending payloads under the async
+        engine, ``(max_inflight + buffer_size)`` rows."""
         row = sum(st.row_nbytes for _, st in self._store_families())
         N, S = self.spec.num_clients, self.spec.num_sampled
+        if self.async_engine is not None:
+            eng = self.async_engine
+            return (eng.max_inflight + eng.buffer_size) * row
         if self._tiered_scan:
             return min(N, (chunk_rounds or self.scan_rounds) * S) * row
         if self._scan_mode:
@@ -608,7 +645,10 @@ class FederatedTrainer:
         """Sample, gather, load, run one round, scatter; returns the
         round's metrics (also appended to ``history``). Pipelined, the
         next rounds are prepared while this one runs. In scanned mode, a
-        chunk of one round: the same bits as any larger chunk."""
+        chunk of one round: the same bits as any larger chunk. In async
+        mode, one buffered aggregation."""
+        if self.async_engine is not None:
+            return self.async_engine.run_round()
         if self._scan_mode:
             return self._run_scan_chunk(1)[0]
         inp = (self._prefetch.popleft().result() if self._prefetch
@@ -990,7 +1030,10 @@ class FederatedTrainer:
 
     def close(self) -> None:
         """Release the stores (the tiered store's worker, memmap files),
-        the pipeline's worker and a captured round's graph."""
+        the pipeline's worker, a captured round's graph and the async
+        engine's pending updates."""
+        if self.async_engine is not None:
+            self.async_engine.close()
         if self._scan_mode:
             self._graph = self._tally = self._captured = None
             if self._tiered_scan:

@@ -29,6 +29,10 @@ noised. The round is generic over ``server.x``: under an update space
 that trains a subset (``core/update_space.py``) it is the delta tree,
 and every state and byte count follows it.
 
+``client_block`` is one client of that loop (rows in, client update,
+clip, noise, codec, rows written back); the async engine's dispatch
+groups run their clients through it too.
+
 ``federated_round`` is the reference's tuple-returning shim over
 ``run_round`` (its seed signature).
 """
@@ -149,6 +153,73 @@ def _write_row(rows, i, new, s: int, place):
     return rows
 
 
+def client_block(grad_fn, spec, x_cl, c_cl, rows: ClientRoundState, i: int,
+                 batch, *, fresh_slots: bool, dev, k_up=None, k_priv=None,
+                 position=None, use_fused_update: bool = False):
+    """Client ``i`` of a cohort as a round runs it: its rows to ``dev``,
+    ``client_update`` from the broadcast ``(x_cl, c_cl)``, then the clip,
+    the client's noise and the uplink codec's round trip.
+
+    rows:     the cohort's ``c_i``, residual and slot rows (leaves
+              ``(n, ...)``, host or device). The client's new rows are
+              written over row ``i`` as soon as each is made (residual and
+              slot rows allocated ``(n, ...)`` in c_i's placement when
+              none came in), so the device holds one client's state.
+    batch:    the client's batches, leaves ``(K, b, ...)`` on ``dev``.
+    fresh_slots: the client starts from ``solver.init`` (no slot rows
+              came into the round).
+    position: the client's fold in the keyed draws (default ``i``):
+              the codec draws at ``k_up.fold_in(position)``, the noise at
+              ``k_priv.fold_in(position)``.
+
+    The round and the async engine's dispatch groups both run clients
+    through this block. Returns ``(rows, dy, dc, loss, clip_flag)``:
+    the row families, the post-codec delta, the control delta, the loss
+    and the clip flag (None unless the privatizer clips).
+    """
+    algo = get_algorithm(spec.algorithm)
+    up = get_compressor(spec.compress)
+    priv = get_privatizer(spec.privatizer)
+    stateful_solver = get_local_solver(resolve_local_solver(spec)).stateful
+    position = i if position is None else position
+    c_i_all = rows.c_i
+    lead = next(iter(c_i_all.values()))
+    n, place = lead.shape[0], lead.device
+    slots_all, res_all = rows.solver_slots, rows.uplink_residual
+    c_i = _rows_to(c_i_all, i, dev)
+    slots_i = (None if fresh_slots else
+               tree_nest_slots(_rows_to(slots_all, i, dev, copy=True)))
+    dy, dc, c_i_new, slots_new, loss = client_update(
+        grad_fn, spec, x_cl, c_cl, c_i, batch, solver_slots=slots_i,
+        use_fused_update=use_fused_update)
+    del c_i, slots_i
+    if algo.stateful_clients:
+        _write_row(c_i_all, i, c_i_new, n, place)
+    del c_i_new
+    if stateful_solver:
+        slots_all = _write_row(slots_all, i, tree_flatten_slots(slots_new),
+                               n, place)
+    del slots_new
+    flag = None
+    if priv.name != "none" and priv.clips:
+        # clip -> (client noise) -> compress: the codec sees a
+        # norm-bounded, already-noised delta
+        dy, flag = priv.clip(spec, dy)
+        if priv.noise_at == "client":
+            dy = priv.client_noise(spec, dy, k_priv.fold_in(position))
+    if up.name != "none":
+        res_i = None if res_all is None else _rows_to(res_all, i, dev)
+        dy, res_new = up.round_trip(
+            spec, dy, res_i,
+            key=k_up.fold_in(position) if up.needs_key else None)
+        if up.stateful:
+            res_all = _write_row(res_all, i, res_new, n, place)
+        del res_i, res_new
+    rows = dataclasses.replace(rows, uplink_residual=res_all,
+                               solver_slots=slots_all)
+    return rows, dy, dc, loss, flag
+
+
 def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
               batches, use_fused_update: bool = False, comp_key=None,
               priv_key=None, dp_round=None) -> RoundOutput:
@@ -195,8 +266,6 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
             f"codecs {up.name!r}/{down.name!r} and privatizer {priv.name!r}:"
             f" pass comp_key (a keyed codec), priv_key and dp_round (a "
             f"privatizer) to run_round")
-    compressing = up.name != "none"
-    clipping = privatizing and priv.clips
     k_up = comp_key.fold_in(0) if comp_key is not None else None
     k_priv = priv_key.fold_in(0) if priv_key is not None else None
 
@@ -213,7 +282,6 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
 
     s = spec.num_sampled
     c_i_all, weights = clients.c_i, clients.weights
-    place = next(iter(c_i_all.values())).device
     stateful_solver = get_local_solver(resolve_local_solver(spec)).stateful
     slots_all = clients.solver_slots if stateful_solver else None
     fresh_slots = slots_all is None  # every client starts from solver.init
@@ -240,37 +308,16 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
         w_seq = (wnorm if weights is not None
                  else torch.full((s,), 1.0 / s, dtype=torch.float32).tolist())
     losses, clip_flags = [], []
+    rows = ClientRoundState(c_i=c_i_all, uplink_residual=res_all,
+                            weights=weights, solver_slots=slots_all)
     for i in range(s):
-        c_i = _rows_to(c_i_all, i, dev)
-        slots_i = (None if fresh_slots else
-                   tree_nest_slots(_rows_to(slots_all, i, dev, copy=True)))
-        batch_i = {k: v[i] for k, v in batches.items()}
-        dy, dc, c_i_new, slots_new, loss = client_update(
-            grad_fn, spec, x_cl, c_cl, c_i, batch_i, solver_slots=slots_i,
+        rows, dy, dc, loss, flag = client_block(
+            grad_fn, spec, x_cl, c_cl, rows, i,
+            {k: v[i] for k, v in batches.items()}, fresh_slots=fresh_slots,
+            dev=dev, k_up=k_up, k_priv=k_priv,
             use_fused_update=use_fused_update)
-        del c_i, slots_i
-        if algo.stateful_clients:
-            _write_row(c_i_all, i, c_i_new, s, place)
-        del c_i_new
-        if stateful_solver:
-            slots_all = _write_row(slots_all, i, tree_flatten_slots(slots_new),
-                                   s, place)
-        del slots_new
-        if clipping:
-            # clip -> (client noise) -> compress: the codec sees a
-            # norm-bounded, already-noised delta
-            dy, flag = priv.clip(spec, dy)
+        if flag is not None:
             clip_flags.append(flag)
-            if priv.noise_at == "client":
-                dy = priv.client_noise(spec, dy, k_priv.fold_in(i))
-        if compressing:
-            res_i = None if res_all is None else _rows_to(res_all, i, dev)
-            dy, res_new = up.round_trip(
-                spec, dy, res_i,
-                key=k_up.fold_in(i) if up.needs_key else None)
-            if up.stateful:
-                res_all = _write_row(res_all, i, res_new, s, place)
-            del res_i, res_new
         if parallel:
             norms.append(tree_norm(dy))
         _accumulate(dy_acc, w_seq[i], dy)
@@ -310,8 +357,7 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
             metrics["dp_clipped_frac"] = torch.stack(clip_flags).mean()
     return RoundOutput(
         server=ServerState(x=x_new, c=c_new, opt_state=opt_state_new),
-        clients=ClientRoundState(c_i=c_i_all, uplink_residual=res_all,
-                                 weights=weights, solver_slots=slots_all),
+        clients=rows,
         metrics=metrics,
     )
 

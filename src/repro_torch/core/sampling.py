@@ -44,6 +44,21 @@ class ClientSampler:
         return self._rng.choice(self.num_clients, size=self.num_sampled,
                                 replace=False)
 
+    def sample_available(self, pool: np.ndarray, size: int) -> np.ndarray:
+        """Up to ``size`` clients of the available ``pool``, uniform
+        without replacement (the async engine's dispatches). Fewer when
+        fewer are available; an empty pool (or ``size <= 0``) consumes no
+        randomness. With the full population available and ``size ==
+        num_sampled`` it consumes the generator exactly as ``sample()``
+        does (``Generator.choice`` treats an int ``n`` and ``arange(n)``
+        alike), which keeps the async engine's degenerate limit on the
+        synchronous cohorts."""
+        pool = np.asarray(pool)
+        n = min(int(size), pool.size)
+        if n <= 0:
+            return np.empty(0, np.int64)
+        return self._rng.choice(pool, size=n, replace=False)
+
     # the numpy bit-generator state, JSON-serializable, for an exact
     # resume of the sampling trajectory (checkpoint/checkpoint.py)
     def get_state(self) -> Dict[str, Any]:

@@ -22,9 +22,16 @@ llama3.2-3b at its published widths:
 chunks of gather-ahead, the scanned engine then holding only the
 cohort's rows on the card.
 
-The async engine's flags (``--async-buffer`` and its availability and
-staleness flags) are accepted as the reference's are, and raise
-``NotImplementedError`` when set: the port has no async engine yet.
+``--async-buffer M`` runs the async buffered engine: one aggregation a
+round once M updates land, up to ``--max-inflight`` dispatches in
+flight, clients online and late by ``--availability`` (``lognormal``
+with ``--latency-sigma``, ``uniform``, ``--dropout``, a recorded
+``--availability-trace``), updates weighted by ``--staleness-weighting``
+(``--staleness-alpha``, ``--staleness-cutoff``):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --rounds 4 --log-every 2 --async-buffer 2 --max-inflight 4 \
+      --availability lognormal --latency-sigma 1.0
 """
 from __future__ import annotations
 
@@ -44,9 +51,11 @@ from repro_torch.core import (
     algorithm_names,
     compressor_names,
     get_privatizer,
+    availability_names,
     local_solver_names,
     privatizer_names,
     server_optimizer_names,
+    staleness_weighting_names,
     store_backend_names,
     update_space_names,
 )
@@ -54,15 +63,6 @@ from repro_torch.data import SyntheticLMFederated
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.optim.schedules import schedule_names
-
-# the async engine's flags and their defaults: any other value selects
-# an engine the port does not have yet
-_ASYNC_FLAGS = {"async_buffer": 0, "max_inflight": 0,
-                "availability": "always_on",
-                "availability_seed": 0, "dropout": 0.0,
-                "latency_sigma": 1.0, "availability_trace": "",
-                "staleness_weighting": "constant", "staleness_alpha": 0.5,
-                "staleness_cutoff": 10.0}
 
 
 def preset_config(arch: str, preset: str):
@@ -158,17 +158,35 @@ def _parser() -> argparse.ArgumentParser:
                          "see --list-registries)")
     ap.add_argument("--prefetch-depth", type=int, default=2,
                     help="chunks of gather-ahead of the tiered store")
-    # the async engine, not ported yet
-    ap.add_argument("--async-buffer", type=int, default=0)
-    ap.add_argument("--max-inflight", type=int, default=0)
-    ap.add_argument("--availability", default="always_on")
-    ap.add_argument("--availability-seed", type=int, default=0)
-    ap.add_argument("--dropout", type=float, default=0.0)
-    ap.add_argument("--latency-sigma", type=float, default=1.0)
-    ap.add_argument("--availability-trace", default="")
-    ap.add_argument("--staleness-weighting", default="constant")
-    ap.add_argument("--staleness-alpha", type=float, default=0.5)
-    ap.add_argument("--staleness-cutoff", type=float, default=10.0)
+    ap.add_argument("--async-buffer", type=int, default=0,
+                    help="async buffered aggregation: aggregate once this "
+                         "many client updates land (0 = synchronous)")
+    ap.add_argument("--max-inflight", type=int, default=0,
+                    help="async: dispatches kept in flight (0 = sampled)")
+    ap.add_argument("--availability", default="always_on",
+                    choices=list(availability_names()),
+                    help="async client availability model (seeded, "
+                         "virtual time)")
+    ap.add_argument("--availability-seed", type=int, default=0,
+                    help="seed of the availability model's latency and "
+                         "dropout draws (independent of --seed)")
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="per-dispatch death probability (uniform, "
+                         "lognormal)")
+    ap.add_argument("--latency-sigma", type=float, default=1.0,
+                    help="lognormal: log-space sigma of a dispatch's "
+                         "latency (the straggler tail)")
+    ap.add_argument("--availability-trace", default="",
+                    help="replay the availability trace at this JSON path "
+                         "(--availability trace)")
+    ap.add_argument("--staleness-weighting", default="constant",
+                    choices=list(staleness_weighting_names()),
+                    help="async down-weighting of stale buffered updates")
+    ap.add_argument("--staleness-alpha", type=float, default=0.5,
+                    help="polynomial weighting: 1/(1+tau)^alpha")
+    ap.add_argument("--staleness-cutoff", type=float, default=10.0,
+                    help="cutoff weighting: drop updates staler than this "
+                         "many versions")
     ap.add_argument("--resume", default="",
                     help="checkpoint to restore before training")
     ap.add_argument("--rounds", type=int, default=50)
@@ -199,17 +217,14 @@ def main(argv=None):
             ("compressors", compressor_names()),
             ("local_solvers", local_solver_names()),
             ("store_backends", store_backend_names()),
+            ("availability_models", availability_names()),
+            ("staleness_weightings", staleness_weighting_names()),
             ("privatizers", privatizer_names()),
             ("update_spaces", update_space_names()),
         ):
             print(f"{title}: {' '.join(names)}")
         return None
 
-    set_async = [f"--{k.replace('_', '-')}" for k, v in _ASYNC_FLAGS.items()
-                 if getattr(args, k) != v]
-    if set_async:
-        raise NotImplementedError(
-            f"{', '.join(set_async)}: the async engine is not ported yet")
     dev = resolve_device(args.device)
     cfg = preset_config(args.arch, args.preset)
     if args.loss_chunk_vocab is not None:
@@ -250,18 +265,41 @@ def main(argv=None):
           f"algo={args.algorithm} N={args.clients} S={args.sampled} "
           f"K={args.local_steps} b={args.local_batch} device={dev}")
 
+    availability_kwargs = {}
+    if args.availability == "trace":
+        availability_kwargs["trace"] = args.availability_trace
+    elif args.availability != "always_on":
+        availability_kwargs.update(seed=args.availability_seed,
+                                   dropout=args.dropout)
+        if args.availability == "lognormal":
+            availability_kwargs["sigma"] = args.latency_sigma
+    staleness_kwargs = {}
+    if args.staleness_weighting == "polynomial":
+        staleness_kwargs["alpha"] = args.staleness_alpha
+    elif args.staleness_weighting == "cutoff":
+        staleness_kwargs["cutoff"] = args.staleness_cutoff
     trainer = FederatedTrainer(
         partial(M.loss_fn, cfg), partial(M.init_params, cfg, device=dev),
         spec, data, seed=args.seed, use_fused_update=True, device=dev,
         pipeline_depth=args.pipeline_depth, scan_rounds=args.scan_rounds,
         store=args.store, store_backend=args.store_backend,
-        prefetch_depth=args.prefetch_depth)
+        prefetch_depth=args.prefetch_depth,
+        async_buffer=args.async_buffer, max_inflight=args.max_inflight,
+        availability=args.availability,
+        availability_kwargs=availability_kwargs,
+        staleness_weighting=args.staleness_weighting,
+        staleness_kwargs=staleness_kwargs)
     if trainer.update_space.trains_subset:
         n_train = trainer.update_space.num_params(trainer.server.x)
         print(f"update space: {trainer.update_space.name} — "
               f"{n_train/1e6:.3f}M trainable of {n_params/1e6:.1f}M "
               f"({n_params/max(n_train, 1):.0f}x fewer), per-round "
               f"up={trainer._comm_bytes['bytes_up']/1e6:.2f}MB")
+    if trainer.async_active:
+        eng = trainer.async_engine
+        print(f"async engine: aggregate {eng.buffer_size} of "
+              f"{eng.max_inflight} in flight, availability="
+              f"{args.availability}, staleness={args.staleness_weighting}")
     if trainer.scan_active:
         print(f"scanned engine: on-device chunks of <= {args.scan_rounds} "
               f"rounds")

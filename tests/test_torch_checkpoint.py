@@ -13,7 +13,15 @@
     stored as ``|V2``;
   * resume is bitwise: 2 rounds, save, a fresh trainer loads and runs
     round 3, equal to 3 unbroken rounds in every array and metric;
-  * a space mismatch and a base that differs by one bit raise.
+  * a space mismatch and a base that differs by one bit raise;
+  * the async engine's pending state: a checkpoint taken mid-buffer, with
+    updates in flight and buffered, resumes bitwise in the port (int8_ef
+    and server adam; local heavy-ball with server noise, so slot rows and
+    clip flags ride along; a tiered memmap store); a mid-buffer
+    checkpoint of the reference's async engine loads into the port, and
+    the port's into the reference's, and both continue on the writer's
+    event stream within 1e-5 of max|x| of its unbroken run; a sync
+    checkpoint loaded into an async trainer raises.
 """
 import dataclasses
 from functools import partial
@@ -38,6 +46,11 @@ from repro_torch.core import FederatedTrainer
 from repro_torch.data import SyntheticLMFederated
 from repro_torch.models import model as TM
 
+from test_torch_async_engine import ASYNC_KW, EVENTS
+from test_torch_async_engine import _against_reference as async_against
+from test_torch_async_engine import _jax_quad_trainer, _quad_trainer
+from test_torch_async_engine import _state as async_state
+from test_torch_async_engine import one_torch_thread  # noqa: F401 (fixture)
 from test_torch_update_space import (  # noqa: F401  (fixtures)
     _close,
     assert_trainers_agree,
@@ -170,3 +183,95 @@ def test_space_mismatch_and_a_differing_base_raise(tmp_path):
         load_trainer(path, other)
     # the same seed and config load
     load_trainer(path, _bf16_trainer("head_only"))
+
+
+ASYNC_CASES = {
+    "int8-adam": (dict(compress="int8_ef", server_optimizer="adam"), {}),
+    "heavy-ball-server-noise": (
+        dict(local_solver="momentum", local_momentum=0.9,
+             privatizer="server_gauss", clip_norm=0.05,
+             noise_multiplier=0.5), {}),
+    "tiered-memmap": (dict(compress="int8_ef"),
+                      dict(store="tiered", store_backend="memmap")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ASYNC_CASES))
+@pytest.mark.usefixtures("one_torch_thread")
+def test_async_mid_buffer_resume_is_bitwise(case, tmp_path):
+    """Save with updates in flight and in the buffer (M < K), restore into
+    a trainer of another seed: the resumed run equals the unbroken one
+    bitwise, its event stream and every metric included."""
+    spec_kw, kw = ASYNC_CASES[case]
+    full = _quad_trainer(spec_kw=spec_kw, **kw, **ASYNC_KW)
+    hist_full = [full.run_round() for _ in range(8)]
+    part = _quad_trainer(spec_kw=spec_kw, **kw, **ASYNC_KW)
+    hist_part = [part.run_round() for _ in range(4)]
+    eng = part.async_engine
+    # an aggregation empties the buffer: step until updates are buffered
+    while not eng._buffer:
+        assert eng.step() is None
+    assert eng._inflight  # genuinely mid-state
+    path = str(tmp_path / "async_ckpt")
+    save_trainer(path, part)
+    with np.load(path + ".npz") as data:
+        n = len(eng._inflight) + len(eng._buffer)
+        assert data["async/dy/x"].shape == (n, 6)
+        assert data["async/dispatch_k"].dtype == np.int64
+    resumed = _quad_trainer(seed=99, spec_kw=spec_kw, **kw, **ASYNC_KW)
+    load_trainer(path, resumed)
+    assert len(resumed.async_engine._buffer) == len(eng._buffer)
+    hist_res = hist_part + [resumed.run_round() for _ in range(4)]
+    assert hist_full == hist_res
+    want, got = async_state(full), async_state(resumed)
+    assert sorted(want) == sorted(got)
+    for k in want:
+        assert torch.equal(want[k], got[k]), k
+    for tr in (full, part, resumed):
+        tr.close()
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+@pytest.mark.usefixtures("one_torch_thread")
+def test_async_checkpoints_cross_packages(writer, tmp_path):
+    """An async checkpoint with updates pending resumes in the other
+    package (the port's taken with updates in flight and buffered; the
+    reference's engine has no step, so its has them in flight): the
+    reader continues on the writer's event stream, within 1e-5 of
+    max|x| of the writer's unbroken run."""
+    kw = dict(spec_kw=dict(compress="int8_ef"), **ASYNC_KW)
+    jt, tt = _jax_quad_trainer(**kw), _quad_trainer(**kw)
+    path = str(tmp_path / "ck")
+    if writer == "reference":
+        for _ in range(4):
+            jt.run_round()
+        assert jt.async_engine._inflight
+        jax_save_trainer(path, jt)
+        reader = _quad_trainer(seed=99, **kw)
+        load_trainer(path + ".npz", reader)
+        pair = (jt, reader)
+    else:
+        for _ in range(4):
+            tt.run_round()
+        while not tt.async_engine._buffer:
+            tt.async_engine.step()
+        save_trainer(path, tt)
+        reader = _jax_quad_trainer(seed=99, **kw)
+        jax_load_trainer(path + ".npz", reader)
+        pair = (reader, tt)
+    assert reader.round_idx == 4
+    for _ in range(4):
+        mj, mt = pair[0].run_round(), pair[1].run_round()
+        for key in EVENTS:
+            assert mj[key] == mt[key], key
+    async_against(*pair)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_sync_checkpoint_into_async_trainer_fails_loudly(tmp_path):
+    sync = _quad_trainer()
+    sync.run_round()
+    path = str(tmp_path / "sync_ckpt")
+    save_trainer(path, sync)
+    with pytest.raises(ValueError, match="no async-engine state"):
+        load_trainer(path, _quad_trainer(async_buffer=5, max_inflight=5))

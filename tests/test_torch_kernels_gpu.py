@@ -17,7 +17,10 @@ LoRA delta tree as the trainer stacks it, and a bf16 checkpoint
 round-trips on the card bitwise. The scanned engine's rounds, captured
 as CUDA graphs around B1-B5, equal the eager host loop on the same
 device streams (bitwise; the W layer within 1e-4), and the launch counts
-follow the graph's replays.
+follow the graph's replays. The async engine's degenerate limit equals
+the synchronous loop on the card bitwise through B1, B2 and B3 with the
+same launches, and under stragglers its tiered store equals the dense
+one and a mid-buffer checkpoint resumes bitwise.
 """
 import math
 import sys
@@ -904,3 +907,81 @@ def test_tiered_repairs_a_client_resampled_across_chunks(monkeypatch):
     assert shared > 0 and sum(repaired) > 0
     for k in states[0]:
         assert torch.equal(states[0][k], states[1][k]), k
+
+
+# the async buffered engine on the card
+
+
+@pytest.mark.parametrize("case,key", [
+    ("mlp", "scaffold_update"), ("mlp heavy-ball", "scaffold_momentum_update"),
+    ("quadratics B3", "scaffold_local_loop")])
+def test_async_degenerate_limit_equals_the_sync_loop(case, key):
+    """M = K = S, always_on, constant: the async engine's aggregations are
+    the synchronous rounds bit for bit on the card, with the same
+    launches of the case's kernel."""
+    from repro_torch.core import FederatedTrainer
+
+    spec, ds, loss_fn, init = _scan_case(case)
+    runs = {}
+    for name, kw in (("sync", {}), ("async", dict(
+            async_buffer=spec.num_sampled,
+            max_inflight=spec.num_sampled))):
+        tr = FederatedTrainer(loss_fn, init, spec, ds, seed=0,
+                              use_fused_update=True, device="cuda", **kw)
+        ops.reset_launches()
+        for _ in range(3):
+            tr.run_round()
+        runs[name] = (_trainer_state(tr),
+                      [{k: m[k] for k in ("loss", "drift", "update_norm",
+                                          "bytes_up", "round")}
+                       for m in tr.history], dict(ops.LAUNCHES))
+        tr.close()
+    (a, ha, na), (b, hb, nb) = runs["sync"], runs["async"]
+    assert ha == hb and na == nb and na[key] > 0
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_async_stragglers_tiered_and_resume_on_the_card(tmp_path):
+    """Lognormal stragglers with dropout, M 2 of K 4, polynomial
+    weighting, int8_ef on the MLP: the tiered store equals the dense one
+    bitwise, and a checkpoint with updates in flight and buffered resumes
+    bitwise."""
+    import dataclasses
+
+    from repro_torch.checkpoint import load_trainer, save_trainer
+    from repro_torch.core import FederatedTrainer
+
+    spec, ds, loss_fn, init = _scan_case("mlp")
+    spec = dataclasses.replace(spec, compress="int8_ef")
+    kw = dict(async_buffer=2, max_inflight=4, availability="lognormal",
+              availability_kwargs=dict(seed=1, sigma=1.5, dropout=0.2),
+              staleness_weighting="polynomial")
+
+    def trainer(**extra):
+        return FederatedTrainer(loss_fn, init, spec, ds, seed=0,
+                                use_fused_update=True, device="cuda",
+                                **kw, **extra)
+
+    dense, tiered = trainer(), trainer(store="tiered")
+    for _ in range(6):
+        assert dense.run_round() == tiered.run_round()
+    a, b = _trainer_state(dense), _trainer_state(tiered)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    tiered.close()
+    part = trainer()
+    for _ in range(3):
+        part.run_round()
+    while not part.async_engine._buffer:
+        part.async_engine.step()
+    assert part.async_engine._inflight
+    save_trainer(str(tmp_path / "ck"), part)
+    resumed = trainer()
+    load_trainer(str(tmp_path / "ck.npz"), resumed)
+    for _ in range(3):
+        resumed.run_round()
+    assert resumed.history == dense.history[3:]
+    c = _trainer_state(resumed)
+    for k in a:
+        assert torch.equal(a[k], c[k]), k

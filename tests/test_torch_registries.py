@@ -4,8 +4,8 @@ exports the reference's names.
   * an algorithm and a codec registered at run time in both packages
     build a ``FedRoundSpec`` in each and train a round of each, to the
     same x (1e-5);
-  * ``repro_torch.core`` exports every name of ``repro.core`` whose
-    registry the port has (the list below, the unported ones named);
+  * ``repro_torch.core`` exports every name of ``repro.core`` (the list
+    below; ``NOT_PORTED`` names what the port lacks, nothing now);
   * the seed shims ``federated_round`` and ``local_sgd`` agree with the
     reference's;
   * ``repro_torch.configs.base`` holds no frozen tuple of names.
@@ -29,18 +29,17 @@ from repro_torch.core import compression as tcomp
 from repro_torch.data import make_paper_fig3, quadratic_loss
 
 # names of repro.core whose registries or engines the port does not have
-# yet: the availability models and the async engine with its staleness
-# weightings (A13)
-NOT_PORTED = {
+# yet (none since the async engine, its availability models and its
+# staleness weightings were ported)
+NOT_PORTED = set()
+# the names the port exports, each one of repro.core's
+EXPORTED = (
     "AsyncBufferedEngine", "AvailabilityModel", "AvailabilityTrace",
     "Dispatch", "DispatchSimulator", "RecordingAvailability",
     "StalenessWeighting", "TraceAvailability", "availability_names",
     "make_availability", "make_staleness_weighting", "record_trace",
     "register_availability", "register_staleness_weighting",
     "staleness_weighting_names",
-}
-# the names the port exports, each one of repro.core's
-EXPORTED = (
     "Algorithm", "ClientRoundState", "ClientSampler", "ClientStateStore",
     "Compressor", "DenseBackend", "DeviceClientSampler", "FederatedTrainer",
     "FullSpace", "HeadOnlySpace", "LoRASpace", "LocalSolver",

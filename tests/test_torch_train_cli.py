@@ -7,9 +7,14 @@ the CPU at the reduced preset.
     ``load_serving_params``;
   * ``head_only`` through the CLI trains only its targets;
   * ``--list-registries`` prints the port's registries, the reference's
-    names among them (the store backends too);
-  * the async engine's flags raise ``NotImplementedError``, never
-    ignored (the scanned, pipelined and tiered engines run);
+    names among them (the store backends, availability models and
+    staleness weightings too);
+  * the async engine's flags, refused until the engine was ported, reach
+    it: each builds the model or weighting it names;
+  * ``--async-buffer`` trains through the async engine (lognormal
+    stragglers with dropout, polynomial weighting), logs the reference's
+    line, checkpoints with updates in flight, and a resumed ``main``
+    equals the unbroken run bitwise;
   * ``--scan-rounds`` trains through the scanned engine and logs it.
 """
 import pytest
@@ -17,6 +22,8 @@ import torch
 
 from repro.core import (
     algorithm_names as jax_algorithm_names,
+    availability_names as jax_availability_names,
+    staleness_weighting_names as jax_staleness_weighting_names,
     store_backend_names as jax_store_backend_names,
     update_space_names as jax_update_space_names,
 )
@@ -63,14 +70,52 @@ def test_list_registries(capsys):
     assert lines["algorithms"].split() == list(jax_algorithm_names())
     assert lines["update_spaces"].split() == list(jax_update_space_names())
     assert lines["store_backends"].split() == list(jax_store_backend_names())
+    assert lines["availability_models"].split() == list(
+        jax_availability_names())
+    assert lines["staleness_weightings"].split() == list(
+        jax_staleness_weighting_names())
 
 
-@pytest.mark.parametrize("flag", [["--async-buffer", "2"],
-                                  ["--availability", "uniform"],
-                                  ["--staleness-weighting", "polynomial"]])
-def test_unported_engine_flags_raise(flag):
-    with pytest.raises(NotImplementedError):
-        main(BASE + ["--rounds", "1"] + flag)
+@pytest.mark.parametrize("flag,want", [
+    (["--max-inflight", "3"], ("max_inflight", 3)),
+    (["--availability", "uniform", "--dropout", "0.25"],
+     ("model", ("uniform", 0.25))),
+    (["--staleness-weighting", "cutoff", "--staleness-cutoff", "2"],
+     ("weighting", ("cutoff", 2.0)))])
+def test_unported_engine_flags_raise(flag, want):
+    """The async flags once raised ``NotImplementedError``; now each one
+    reaches the engine, never ignored."""
+    tr = main(BASE + ["--rounds", "1", "--async-buffer", "2"] + flag)
+    eng = tr.async_engine
+    assert tr.async_active and eng.buffer_size == 2
+    attr, value = want
+    got = getattr(eng, attr)
+    if attr == "model":
+        got = (got.name, got.dropout)
+    elif attr == "weighting":
+        got = (got.name, got.cutoff)
+    assert got == value
+
+
+ASYNC = ["--async-buffer", "2", "--max-inflight", "3", "--availability",
+         "lognormal", "--latency-sigma", "1.0", "--dropout", "0.2",
+         "--availability-seed", "3", "--staleness-weighting", "polynomial"]
+
+
+def test_async_buffer_trains_checkpoints_and_resumes(tmp_path, capsys):
+    ck = str(tmp_path / "async")
+    first = main(BASE + ASYNC + ["--rounds", "2", "--checkpoint", ck])
+    out = capsys.readouterr().out
+    assert ("async engine: aggregate 2 of 3 in flight, availability="
+            "lognormal, staleness=polynomial") in out
+    assert first.async_engine._inflight  # pending updates saved
+    assert sum(sum(m["staleness_hist"]) for m in first.history) == 4
+    resumed = main(BASE + ASYNC + ["--rounds", "2", "--resume", ck + ".npz"])
+    unbroken = main(BASE + ASYNC + ["--rounds", "4"])
+    assert resumed.round_idx == unbroken.round_idx == 4
+    assert resumed.history == unbroken.history[2:]
+    for k, v in unbroken.x.items():
+        assert torch.equal(resumed.x[k], v), k
 
 
 def test_scan_rounds_trains_scanned(capsys):

@@ -189,19 +189,28 @@ def test_lm_megakernel_falls_back_loudly(lm_weights):
 
 
 @pytest.mark.parametrize("change", [
-    # the pipelined engine, the tiered store and its backends are ported
-    # (tests/test_torch_store.py, test_torch_tiered.py,
-    # test_torch_pipelined.py); the async engine is not
+    # every engine is ported now: the pipelined engine and the tiered
+    # store (tests/test_torch_store.py, test_torch_tiered.py,
+    # test_torch_pipelined.py) and the async engine, which raised here
+    # until it was (tests/test_torch_async_engine.py)
     dict(trainer={"async_buffer": 2}),
 ])
 def test_not_ported_modes_raise(change):
+    """The mode that raised ``NotImplementedError`` now runs: at M = K =
+    S it is the synchronous trainer bit for bit."""
     tds = make_paper_fig3()
     spec = dataclasses.replace(
         TSpec(algorithm="scaffold", num_clients=2, num_sampled=2,
               local_steps=1, local_batch=1), **change.get("spec", {}))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        FederatedTrainer(quadratic_loss, lambda gen: {"x": torch.ones(20)},
-                         spec, tds, device="cpu", **change.get("trainer", {}))
+    trainers = [FederatedTrainer(quadratic_loss,
+                                 lambda gen: {"x": torch.ones(20)}, spec,
+                                 tds, device="cpu", **kw)
+                for kw in ({}, change.get("trainer", {}))]
+    assert trainers[1].async_active and not trainers[0].async_active
+    for tr in trainers:
+        tr.run(3)
+    assert torch.equal(trainers[0].x["x"], trainers[1].x["x"])
+    assert trainers[0].history[-1]["loss"] == trainers[1].history[-1]["loss"]
 
 
 @pytest.mark.parametrize("change", [
