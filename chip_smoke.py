@@ -23,10 +23,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      and broadcast, resident and streaming (d 3000), each case launched
      twice and bitwise equal; fails if a launch ran on one block
   6. the heavy-ball K-step kernel (B4), the same checks
-  7. the sliding-window attention kernel (B5) against its plain version;
-     its tensor-core instructions counted in the built library's SASS;
-     timed at gemma3-1b's "W" layer beside its bound and SDPA, by card
-     time (``card_ms``) and per call (CUDA events)
+  7. the sliding-window attention kernel (B5) against its plain version,
+     hymba-1.5b's "Y" attention (25q/5kv x 64, window 1024) among the
+     shapes; its tensor-core instructions counted in the built library's
+     SASS; timed at gemma3-1b's "W" layer and at hymba's beside its bound
+     and SDPA, by card time (``card_ms``) and per call (CUDA events)
   8. a 2-layer fp32 llama, one SCAFFOLD round on the card vs the CPU
   9. a 2-layer fp32 gemma3 at seq 128 (its "W" layer through B5), one
      SCAFFOLD round on the card vs the CPU
@@ -126,6 +127,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      aggregations (B5, B1; s/aggregation, peak device memory against the
      plan); LoRA r 8, 2 aggregations and a checkpoint with updates in
      flight, resumed by a fresh process bitwise the unbroken run
+  32. the reduced fp32 mamba2 (seq 64) and hymba (seq 128, its attention
+     on the band path through B5), one SCAFFOLD round each on the card vs
+     the CPU
+  33. hymba-1.5b at its published widths, all 32 "Y" layers in bf16, seq
+     2048: B5 on every layer's attention (384 launches in 3 rounds), B1
+     on the two dtype groups (bf16 weights; fp32 ``a_log``, ``dt_bias``,
+     ``d_skip``: 24 launches), s/round and peak memory against
+     ``_lm_plan``, a profiled round, B1 timed on the mixed tree; LoRA r 8
+     through ``launch.train.main --arch hymba-1.5b --preset full``
+  34. mamba2-2.7b at its published widths, all 64 "M" layers in bf16, at
+     the longest sequence whose plan fits (seq cut, not depth): B1 on its
+     two dtype groups (24 launches, no B5), s/round and peak memory
+     against the plan, a profiled round
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; a launch inside a captured CUDA graph counts at each
@@ -197,14 +211,17 @@ B5_FP32_ATOL = 2e-5
 # (B, S, Hq, Hkv, D, window): the JAX package's kernel test shapes,
 # gemma3-1b's "W" layer at seq 2048, batch 1 and 2, and the bf16 kernel's
 # tiling edges: S and W not multiples of its 64-row tiles, W >= S, batch 2
-# with 4 query heads a kv head
+# with 4 query heads a kv head; hymba-1.5b's "Y" layer's attention at seq
+# 2048 (25 query heads over 5 kv heads, window 1024), batch 1 and 2
 B5_CASES = ((1, 512, 2, 1, 64, 128), (2, 256, 4, 4, 32, 64),
             (1, 384, 6, 3, 64, 128), (2, 128, 2, 1, 128, 64),
             (1, 2048, 4, 1, 256, 512), (2, 2048, 4, 1, 256, 512),
             (1, 1000, 4, 1, 256, 300), (1, 1000, 4, 1, 64, 300),
             (1, 300, 4, 1, 256, 512), (1, 200, 2, 1, 32, 50),
-            (2, 512, 4, 1, 256, 128), (2, 1000, 8, 2, 64, 300))
+            (2, 512, 4, 1, 256, 128), (2, 1000, 8, 2, 64, 300),
+            (1, 2048, 25, 5, 64, 1024), (2, 2048, 25, 5, 64, 1024))
 B5_LAYER = B5_CASES[4]  # gemma3-1b's "W" layer at batch 1, the timed shape
+B5_HYMBA = B5_CASES[12]  # hymba-1.5b's "Y" attention at batch 1, timed too
 # B1's and B2's tree cases, name -> (leaf sizes, dtype of y and g, dtype
 # of corr, misaligned leaves): the trees the main path launches them on
 # (the EMNIST MLP's, the quadratics' one leaf), a full leaf table (corr
@@ -777,11 +794,10 @@ def phase_b5_plain(result):
     """Phase 7: the sliding-window attention kernel against its plain
     version (bf16: 1 ulp where |plain| >= 2^-8, 1 ulp + B5_FP32_ATOL
     everywhere); the tensor-core instructions of its SASS counted; timed
-    at gemma3-1b's "W" layer shape beside its bound, its plain version and
-    SDPA with the band mask, by device time and per call."""
+    at gemma3-1b's "W" layer and hymba-1.5b's "Y" attention beside its
+    bound, its plain version and SDPA with the band mask, by device time
+    and per call."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels import build
     from repro_torch.kernels.swa_attention import ops as swa_ops
@@ -840,15 +856,32 @@ def phase_b5_plain(result):
         raise AssertionError(f"B5: no tensor-core instruction in the SASS of"
                              f" swa_fwd_wgmma<{B5_LAYER[4]}> ({counts})")
 
-    # timing at gemma3-1b's "W" layer (seq 2048, batch 1) in bf16, L2
-    # flushed before every call (256 MB of uint8, whose fill kernel no
-    # timed call launches)
-    b, s, hq, hkv, d, w = B5_LAYER
-    q, k, v = _swa_inputs(gen, b, s, hq, hkv, d, bf16)
+    # timing at gemma3-1b's "W" layer and hymba-1.5b's "Y" attention (seq
+    # 2048, batch 1) in bf16, L2 flushed before every call (256 MB of
+    # uint8, whose fill kernel no timed call launches)
+    flush = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
+    result["b5"] = _time_b5(gen, B5_LAYER, "gemma3-1b W layer", flush)
+    hymba = _time_b5(gen, B5_HYMBA, "hymba-1.5b Y layer", flush)
+    result["b5"]["hymba"] = hymba
+    del flush
+    torch.cuda.empty_cache()
+
+
+def _time_b5(gen, shape, tag, flush) -> dict:
+    """B5 at ``shape`` in bf16 beside its bound, its plain version and SDPA
+    with the band mask, by card time (in turns) and per call; returns the
+    kernels line's numbers."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+
+    b, s, hq, hkv, d, w = shape
+    q, k, v = _swa_inputs(gen, b, s, hq, hkv, d, torch.bfloat16)
     plain = _swa_plain(q, k, v, w)
     err = float((swa_ops.swa_attention_cuda(q, k, v, w).float()
                  - plain.float()).abs().max())
-    flush = torch.empty(1 << 28, dtype=torch.uint8, device="cuda")
 
     def kernel():
         return swa_ops.swa_attention_cuda(q, k, v, w)
@@ -868,8 +901,8 @@ def phase_b5_plain(result):
                                               enable_gqa=True)
 
     # the yardstick is SDPA pinned to cuDNN, the one fast backend that takes
-    # 4q/1kv heads with a mask; the call as PyTorch dispatches it is logged
-    # beside it
+    # grouped kv heads with a mask; the call as PyTorch dispatches it is
+    # logged beside it
     default_all = [cuda_ms(sdpa, 20, flush=flush) for _ in range(2)]
     with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]):
         lib_err = float((sdpa().transpose(1, 2).float()
@@ -887,9 +920,9 @@ def phase_b5_plain(result):
             for name, fn, iters, spin in (sides if turn % 2 == 0
                                           else sides[::-1]):
                 dev[name].append(card_ms(fn, iters, flush, spin))
-    log(f"SDPA with the band mask, enable_gqa, L2 flushed, per call (CUDA "
-        f"events): pinned to CUDNN_ATTENTION {spread(lib_all)}; unpinned "
-        f"dispatch {spread(default_all)}")
+    log(f"SDPA at the {tag} with the band mask, enable_gqa, L2 flushed, per "
+        f"call (CUDA events): pinned to CUDNN_ATTENTION {spread(lib_all)}; "
+        f"unpinned dispatch {spread(default_all)}")
     # the band's (q, k) pairs in this input, 4*D flops each (q k^T and
     # p v); q, k, v read once and o written once
     pairs = sum(min(i + 1, w) for i in range(s))
@@ -900,8 +933,8 @@ def phase_b5_plain(result):
     bound, bound_by = max((t_ops, "operations"), (t_bytes, "bytes"))
     k_ms, p_ms, lib_ms = (statistics.median(dev[n])
                           for n in ("kernel", "plain", "sdpa"))
-    log(f"swa_attention gemma3-1b W layer (B {b}, S {s}, {hq}q/{hkv}kv heads"
-        f" x {d}, W {w}) bf16, L2 flushed. Card time a call: kernel "
+    log(f"swa_attention {tag} (B {b}, S {s}, {hq}q/{hkv}kv heads x {d}, W "
+        f"{w}) bf16, L2 flushed. Card time a call: kernel "
         f"{spread(dev['kernel'])}, plain {spread(dev['plain'])}, SDPA with "
         f"the band mask (cuDNN) {spread(dev['sdpa'])}; B5 leads SDPA "
         f"{lib_ms / k_ms:.2f}x. Per call (CUDA events): kernel "
@@ -911,10 +944,8 @@ def phase_b5_plain(result):
         f"989 TFLOP/s; {nbytes / 1e6:.2f} MB = {t_bytes * 1e3:.2f} us at "
         f"3.35 TB/s); {flops / k_ms / 1e9:.1f} TFLOP/s by card time; max "
         f"|kernel - plain| {err:.3e}, |SDPA - plain| {lib_err:.3e}")
-    result["b5"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                        bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
-    del flush, q, k, v, plain, band, qt, kt, vt
-    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=lib_ms)
 
 
 def _card_vs_cpu_round(arch: str, seq_len: int, **changes):
@@ -983,6 +1014,40 @@ def phase_gemma_small():
         raise AssertionError(f"gemma check launches {counts}")
 
 
+def _ssm_proj_width(cfg) -> int:
+    """The Mamba2 in-projection's width, 2 d_inner + 2 N + H (0 without
+    an SSM)."""
+    if cfg.ssm is None:
+        return 0
+    sm, e = cfg.ssm, cfg.d_model
+    return 2 * sm.d_inner(e) + 2 * sm.n_groups * sm.d_state + sm.n_heads(e)
+
+
+def _ssm_chunk(cfg, seq_len: int) -> int:
+    """The SSD's chunk length at ``seq_len`` (``layers._ssd_chunked``)."""
+    chunk = min(cfg.ssm.chunk_size, seq_len)
+    while seq_len % chunk:
+        chunk //= 2
+    return chunk
+
+
+def _ssm_token_bytes(cfg, seq_len: int) -> int:
+    """Activation bytes a Mamba2 block keeps for the backward pass, per
+    token: the in-projection's output and the conv's input, products and
+    output in bf16; the gate and the gated product in bf16; about 8 fp32
+    tensors of width d_inner (x, the intra- and inter-chunk outputs, the
+    skip, the gated norm's); and 3 fp32 intra-chunk tensors of (B, S/L,
+    L, L, H) (the decay, its product with C B^T, the masked product that
+    feeds the einsum), L the chunk."""
+    if cfg.ssm is None:
+        return 0
+    sm, e = cfg.ssm, cfg.d_model
+    di, h = sm.d_inner(e), sm.n_heads(e)
+    conv_dim = di + 2 * sm.n_groups * sm.d_state
+    return (2 * _ssm_proj_width(cfg) + 3 * 2 * conv_dim + 3 * 2 * di
+            + 8 * 4 * di + 3 * 4 * _ssm_chunk(cfg, seq_len) * h)
+
+
 def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
              subset=None, pending: int = 0):
     """Reckoned peak device bytes of an LM phase at cfg's depth: the
@@ -990,8 +1055,10 @@ def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
     client's c_i, c - c_i, its working copy y, and the grads or, after the
     steps, c_i_new and dc: 8), the client's solver slot (``slot_bytes`` a
     parameter), plus activations (the S^2 scores of the "F" layers only:
-    a "W" layer keeps its q, k and v and recomputes its band in the
-    backward pass) and temporaries (the CE's vocab chunks among them).
+    a "W" or "Y" layer keeps its q, k and v and recomputes its band in
+    the backward pass; an "M" or "Y" layer's Mamba2 block
+    ``_ssm_token_bytes`` a token) and temporaries (the CE's vocab chunks
+    and the largest stacked leaf's gradient among them).
 
     ``subset`` = (target params, delta-tree bytes) plans an update space
     that trains a subset instead: the frozen bf16 base, the targets
@@ -1010,10 +1077,14 @@ def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
     tree = 2 * n  # bf16
     t = seq_len * local_batch
     e, f = cfg.d_model, cfg.d_ff
-    n_full = cfg.pattern_for_layers().count("F")
-    act = (cfg.num_layers * t * (10 * e + 5 * f) * 2
+    pattern = cfg.pattern_for_layers()
+    n_full = pattern.count("F")
+    n_attn = sum(k != "M" for k in pattern)
+    act = (n_attn * t * (10 * e + 5 * f) * 2
            + n_full * 2 * cfg.num_heads * seq_len ** 2 * 4 * local_batch)
-    largest = 2 * cfg.num_layers * e * f
+    act += sum(k in "MY" for k in pattern) * t * _ssm_token_bytes(
+        cfg, seq_len)
+    largest = 2 * cfg.num_layers * e * max(f, _ssm_proj_width(cfg))
     temps = (2 * 2 * cfg.vocab_size * e + 4 * largest
              + 4 * t * cfg.loss_chunk_vocab * 4)
     if subset is not None:
@@ -1050,10 +1121,16 @@ def _lm_fit(spec, seq_len: int, slot_bytes: int = 0,
         depth -= 1
     slot = (f" + the client's fp32 slot {slot_bytes * n / 1e9:.1f} GB"
             if slot_bytes else "")
+    ssm = ""
+    if cfg.ssm is not None:
+        sm = cfg.ssm
+        ssm = (f", Mamba2 d_inner {sm.d_inner(cfg.d_model)}, "
+               f"{sm.n_heads(cfg.d_model)} heads x {sm.head_dim}, d_state "
+               f"{sm.d_state}, chunk {_ssm_chunk(cfg, seq_len)}")
     log(f"lm: {cfg.name} widths (d_model {cfg.d_model}, {cfg.num_heads}q/"
         f"{cfg.num_kv_heads}kv heads x {cfg.head_dim}, d_ff {cfg.d_ff}, "
         f"{cfg.mlp_kind}, vocab {cfg.vocab_size}, tied, bf16, pattern "
-        f"{cfg.layer_pattern}), CE over vocab chunks of "
+        f"{cfg.layer_pattern}{ssm}), CE over vocab chunks of "
         f"{cfg.loss_chunk_vocab}; {n} params, {tree / 1e9:.2f} GB a tree")
     log(f"lm: memory reckoning at num_layers {depth}, seq {seq_len}: 8 "
         f"param-sized trees = {8 * tree / 1e9:.1f} GB{slot} + activations "
@@ -4000,6 +4077,227 @@ def phase_async_gemma(result):
         Path(str(path) + ".npz").unlink()
 
 
+SSM_CHUNK = 16384  # the SSM phases' CE vocab chunk (hymba: 2, mamba2: 4)
+HYMBA_LORA_ELEMENTS = 8_077_312
+# the sequence lengths phase_mamba2_full tries, longest first: the first
+# whose plan fits LM_MEMORY_LIMIT runs (sequence is cut, not depth)
+MAMBA2_SEQS = (2048, 1024, 512)
+
+
+def phase_ssm_small():
+    """Phase 32: the reduced fp32 mamba2 ("MM", chunk 32) at seq 64 and
+    the reduced hymba ("YY", window 64) at seq 128, one SCAFFOLD round
+    each on the card vs the CPU: hymba's attention takes the band path,
+    B5 on the card."""
+    for arch, seq, n_swa in (("mamba2-2.7b", 64, 0), ("hymba-1.5b", 128, 2)):
+        err, counts, steps = _card_vs_cpu_round(arch, seq)
+        want = {k: 0 for k in counts["cuda"]}
+        want.update(swa_attention=n_swa * steps, scaffold_update=steps)
+        log(f"ssm check: 2-layer fp32 {arch} at seq {seq}, one SCAFFOLD round"
+            f" on the card (kernels) vs the CPU (plain): max leaf rel err "
+            f"{err:.2e} (bound 1e-4); card launches {counts['cuda']} (want "
+            f"swa_attention {want['swa_attention']}, scaffold_update {steps})")
+        if not err <= 1e-4:
+            raise AssertionError(f"ssm check {arch}: rel err {err}")
+        if counts["cuda"] != want or any(counts["cpu"].values()):
+            raise AssertionError(f"ssm check {arch}: launches {counts}")
+
+
+def _ssm_rounds(tag, cfg, spec, seq_len, rounds, plan):
+    """``rounds`` SCAFFOLD rounds of ``cfg`` on the card from a fresh
+    trainer, each logged with its seconds, tokens/s and peak device
+    memory beside the plan; returns the trainer, its launches and the
+    rounds' seconds and peaks."""
+    import torch
+
+    t0 = time.perf_counter()
+    tr = _lm_trainer(cfg, spec, seq_len)
+    torch.cuda.synchronize()
+    log(f"{tag}: trainer set-up {time.perf_counter() - t0:.1f} s (init on "
+        f"the card, host store of {tr.store.population_nbytes / 1e9:.1f} GB);"
+        f" x in {len(tr.x)} leaves: " + ", ".join(
+            f"{sum(v.numel() for v in tr.x.values() if v.dtype == dt)} "
+            f"{str(dt).split('.')[-1]}"
+            for dt in sorted({v.dtype for v in tr.x.values()}, key=str)))
+    tokens = spec.num_sampled * spec.local_steps * spec.local_batch * seq_len
+    secs, peaks = [], []
+    reset_launches()
+    for r in range(rounds):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = tr.run_round()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        log(f"{tag} round {r + 1}: loss {m['loss']:.4f}, drift "
+            f"{m['drift']:.4e}, {secs[-1]:.3f} s, {tokens / secs[-1]:.1f} "
+            f"tokens/s ({tokens} tokens), peak device memory "
+            f"{peaks[-1] / 1e9:.2f} GB (planned {plan / 1e9:.2f} GB), peak "
+            f"host memory {host_peak_gb():.1f} GB")
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["drift"])):
+            raise AssertionError(f"{tag} round {r + 1}: non-finite {m}")
+    return tr, launches(), secs, peaks
+
+
+def _ssm_spec():
+    from repro_torch.configs.base import FedRoundSpec
+
+    return FedRoundSpec(algorithm="scaffold", num_clients=4, num_sampled=2,
+                        local_steps=2, local_batch=1, eta_l=0.01,
+                        strategy="client_sequential")
+
+
+def phase_hymba_full(result):
+    """Phase 33: hymba-1.5b at its published widths and all 32 "Y" layers
+    in bf16, seq 2048: every layer's attention forward through B5 (25q/5kv
+    x 64, window 1024) beside its Mamba2 block; the local steps through
+    B1 on the two dtype groups (the bf16 weights; the fp32 ``a_log``,
+    ``dt_bias`` and ``d_skip``); launch counts held exactly, round times,
+    memory against the plan, a profiled round, B1 timed on the mixed
+    tree. Then LoRA r 8 on the default targets through
+    ``repro_torch.launch.train.main --arch hymba-1.5b --preset full``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    seq_len, rounds = 2048, 3
+    spec = _ssm_spec()
+    cfg, _, _ = _lm_fit(spec, seq_len, arch="hymba-1.5b", chunk=SSM_CHUNK)
+    if cfg.num_layers != get_config("hymba-1.5b").num_layers:
+        raise AssertionError(f"hymba: the memory plan cut depth to "
+                             f"{cfg.num_layers} layers")
+    plan = _lm_plan(cfg, seq_len, spec.local_batch)[2]
+    tr, counts, secs, peaks = _ssm_rounds("hymba", cfg, spec, seq_len,
+                                          rounds, plan)
+    groups = len(_b1_groups(tr))
+    steps = spec.num_sampled * spec.local_steps
+    want = {k: 0 for k in counts}
+    want.update(swa_attention=cfg.num_layers * steps * rounds,
+                scaffold_update=steps * groups * rounds)
+    log(f"hymba: launches {counts}; want swa_attention = {cfg.num_layers} Y "
+        f"layers x S {spec.num_sampled} x K {spec.local_steps} x rounds "
+        f"{rounds} = {want['swa_attention']}, scaffold_update = S x K x "
+        f"groups {groups} x rounds = {want['scaffold_update']}, nothing "
+        f"else; rounds 2-{rounds} mean {statistics.mean(secs[1:]):.3f} s, "
+        f"peak {max(peaks) / 1e9:.2f} GB against the plan's "
+        f"{plan / 1e9:.2f} GB")
+    if groups != 2 or counts != want or want["swa_attention"] != 384 or \
+            want["scaffold_update"] != 24:
+        raise AssertionError(f"hymba: {groups} groups, launches {counts} != "
+                             f"{want}")
+    result.setdefault("b5_paths", {})["hymba-1.5b"] = counts["swa_attention"]
+    result.setdefault("b1_paths", {})["hymba-1.5b"] = counts[
+        "scaffold_update"]
+    _profile_round(tr, "hymba", kernels=("swa_fwd_wgmma", "scaffold_update"))
+    result["b1"].setdefault("trees", {})["hymba mixed"] = _time_update_tree(
+        "scaffold_update at the hymba-1.5b tree (bf16 and fp32 groups)",
+        tr.x, tr.c, spec.eta_l)
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+    # LoRA r 8 on the default targets through the entry point: B5 on every
+    # layer in the steps and the eval after each round, B1 on the delta
+    # tree's one fp32 group
+    lora_rounds = 2
+    cfg = dataclasses.replace(get_config("hymba-1.5b"),
+                              loss_chunk_vocab=SSM_CHUNK)
+    elements = _subset_plan("lora hymba", cfg, seq_len, "lora", LORA_RANK)
+    reset_launches()
+    with _RoundLog("lora hymba", steps * seq_len) as rl:
+        tr = train.main(_train_argv(
+            "hymba-1.5b", seq_len, lora_rounds, SSM_CHUNK, "--update-space",
+            "lora", "--lora-rank", str(LORA_RANK)))
+    counts = launches()
+    want = {k: 0 for k in counts}
+    want.update(swa_attention=cfg.num_layers * (steps + 1) * lora_rounds,
+                scaffold_update=steps * lora_rounds)
+    secs = ", ".join(f"{r['seconds']:.3f}" for r in rl.rows)
+    log(f"lora hymba: launches {counts}; want swa_attention = "
+        f"{cfg.num_layers} x (S x K {steps} + 1 eval) x rounds "
+        f"{lora_rounds} = {want['swa_attention']}, scaffold_update = "
+        f"{want['scaffold_update']}; s/round {secs}")
+    if (elements != HYMBA_LORA_ELEMENTS or len(tr.x) != 14
+            or counts != want):
+        raise AssertionError(f"lora hymba: delta tree {elements}, "
+                             f"{len(tr.x)} leaves, launches {counts}")
+    _check_subset_rounds("lora hymba", tr, rl.rows, "lora", elements, 4)
+    result["b5_paths"]["lora hymba-1.5b"] = counts["swa_attention"]
+    result["b1_paths"]["lora hymba-1.5b"] = counts["scaffold_update"]
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+
+def _b1_groups(tr) -> dict:
+    """B1's dtype groups of trainer ``tr``'s x (y, g and c share x's
+    dtypes leaf by leaf)."""
+    from repro_torch.kernels.scaffold_update import ops
+
+    return ops.dtype_groups(tr.x, tr.x, tr.c)
+
+
+def phase_mamba2_full(result):
+    """Phase 34: mamba2-2.7b at its published widths and all 64 "M"
+    layers in bf16, at the longest of ``MAMBA2_SEQS`` whose plan fits
+    (sequence cut, not depth): SCAFFOLD through B1 on its two dtype groups
+    (no attention, no B5); launch counts held exactly, round times,
+    memory against the plan, a profiled round."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    spec, rounds = _ssm_spec(), 3
+    base = dataclasses.replace(get_config("mamba2-2.7b"),
+                               loss_chunk_vocab=SSM_CHUNK)
+    for seq_len in MAMBA2_SEQS:
+        plan = _lm_plan(base, seq_len, spec.local_batch)[2]
+        log(f"mamba2: plan at seq {seq_len}, 64 layers: {plan / 1e9:.1f} GB "
+            f"(limit {LM_MEMORY_LIMIT / 1e9:.0f} GB)")
+        if plan <= LM_MEMORY_LIMIT:
+            break
+    if seq_len != MAMBA2_SEQS[0]:
+        log(f"reduced: seq {MAMBA2_SEQS[0]} -> {seq_len} (mamba2-2.7b, depth "
+            f"kept at {base.num_layers})")
+    cfg, _, _ = _lm_fit(spec, seq_len, arch="mamba2-2.7b", chunk=SSM_CHUNK)
+    if cfg.num_layers != base.num_layers:
+        raise AssertionError(f"mamba2: the memory plan cut depth to "
+                             f"{cfg.num_layers} layers at seq {seq_len}")
+    tr, counts, secs, peaks = _ssm_rounds("mamba2", cfg, spec, seq_len,
+                                          rounds, plan)
+    groups = len(_b1_groups(tr))
+    steps = spec.num_sampled * spec.local_steps
+    want = {k: 0 for k in counts}
+    want.update(scaffold_update=steps * groups * rounds)
+    log(f"mamba2: launches {counts}; want scaffold_update = S x K {steps} x "
+        f"groups {groups} x rounds {rounds} = {want['scaffold_update']}, "
+        f"nothing else; rounds 2-{rounds} mean "
+        f"{statistics.mean(secs[1:]):.3f} s, peak {max(peaks) / 1e9:.2f} GB "
+        f"against the plan's {plan / 1e9:.2f} GB at seq {seq_len}")
+    if groups != 2 or counts != want or want["scaffold_update"] != 24:
+        raise AssertionError(f"mamba2: {groups} groups, launches {counts} "
+                             f"!= {want}")
+    result.setdefault("b1_paths", {})["mamba2-2.7b"] = counts[
+        "scaffold_update"]
+    _profile_round(tr, "mamba2", kernels=("scaffold_update",))
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+
+def _phase(fn, *args):
+    """Run one phase and log its seconds (host clock, the card
+    synchronised after it)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    log(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     """Run every phase; 0 when all passed."""
     import torch
@@ -4014,44 +4312,47 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     t_all = time.perf_counter()
-    smi = phase_environment()
-    phase_build()
-    phase_b1_plain()
-    phase_b2_plain()
-    phase_b3_plain()
-    phase_b4_plain()
+    smi = _phase(phase_environment)
+    _phase(phase_build)
+    _phase(phase_b1_plain)
+    _phase(phase_b2_plain)
+    _phase(phase_b3_plain)
+    _phase(phase_b4_plain)
     result = {}
-    phase_b5_plain(result)
-    phase_lm_small()
-    phase_gemma_small()
-    phase_gemma_full(result)
-    phase_lm_full(result)
-    phase_lm_momentum(result)
+    _phase(phase_b5_plain, result)
+    _phase(phase_lm_small)
+    _phase(phase_gemma_small)
+    _phase(phase_gemma_full, result)
+    _phase(phase_lm_full, result)
+    _phase(phase_lm_momentum, result)
     from repro_torch.data import make_similarity_quadratics
 
     t0 = time.perf_counter()
     ds = make_similarity_quadratics(20, 1024, delta=0.3, G=8.0, mu=0.3)
     log(f"quad: 20 clients, d=1024 built in {time.perf_counter() - t0:.1f} s")
-    phase_quadratics(ds, result)
-    phase_quad_heavy_ball(ds, result)
-    phase_quad_sched_adam(ds, result)
-    phase_emnist_table5(result)
-    phase_emnist_codecs(result)
-    phase_lora_llama(result)
-    phase_lora_gemma(result)
-    phase_head_only_gemma(result)
-    phase_spaces_small(result)
-    phase_fig3_scanned(result)
-    phase_table5_scanned(result)
-    phase_capture_checks(result)
-    phase_gemma_scanned(result)
-    phase_tiered_emnist(result)
-    phase_population(result)
-    phase_pipelined(result)
-    phase_async_degenerate(ds, result)
+    _phase(phase_quadratics, ds, result)
+    _phase(phase_quad_heavy_ball, ds, result)
+    _phase(phase_quad_sched_adam, ds, result)
+    _phase(phase_emnist_table5, result)
+    _phase(phase_emnist_codecs, result)
+    _phase(phase_lora_llama, result)
+    _phase(phase_lora_gemma, result)
+    _phase(phase_head_only_gemma, result)
+    _phase(phase_spaces_small, result)
+    _phase(phase_fig3_scanned, result)
+    _phase(phase_table5_scanned, result)
+    _phase(phase_capture_checks, result)
+    _phase(phase_gemma_scanned, result)
+    _phase(phase_tiered_emnist, result)
+    _phase(phase_population, result)
+    _phase(phase_pipelined, result)
+    _phase(phase_async_degenerate, ds, result)
     del ds
-    phase_async_stragglers(result)
-    phase_async_gemma(result)
+    _phase(phase_async_stragglers, result)
+    _phase(phase_async_gemma, result)
+    _phase(phase_ssm_small)
+    _phase(phase_hymba_full, result)
+    _phase(phase_mamba2_full, result)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     # B1-B4 are bound by bytes and no one PyTorch call computes them
     for key in ("b1", "b2", "b3", "b4", "b5"):

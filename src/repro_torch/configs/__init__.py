@@ -1,19 +1,24 @@
 """Architecture registry of the port: ``get_config`` / ``get_reduced``.
 
-llama3.2-3b and gemma3-1b are ported so far; the other architectures
-of the JAX package raise ``NotImplementedError``.
+llama3.2-3b, gemma3-1b, mamba2-2.7b and hymba-1.5b are ported so far;
+the other architectures of the JAX package raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from repro_torch.configs import gemma3_1b, llama3_2_3b
-from repro_torch.configs.base import FedRoundSpec, ModelConfig  # noqa: F401
+from repro_torch.configs import gemma3_1b, hymba_1_5b, llama3_2_3b, mamba2_2_7b
+from repro_torch.configs.base import (  # noqa: F401
+    FedRoundSpec,
+    ModelConfig,
+    SSMConfig,
+)
 
-_ARCHS = {"llama3.2-3b": llama3_2_3b, "gemma3-1b": gemma3_1b}
+_ARCHS = {"llama3.2-3b": llama3_2_3b, "gemma3-1b": gemma3_1b,
+          "mamba2-2.7b": mamba2_2_7b, "hymba-1.5b": hymba_1_5b}
 
 # the JAX package's other architectures, not ported yet
-_NOT_PORTED = ("hymba-1.5b", "minicpm3-4b", "whisper-tiny", "paligemma-3b",
-               "deepseek-v3-671b", "mamba2-2.7b", "qwen2-moe-a2.7b",
-               "minitron-4b")
+_NOT_PORTED = ("minicpm3-4b", "whisper-tiny", "paligemma-3b",
+               "deepseek-v3-671b", "qwen2-moe-a2.7b", "minitron-4b")
 
 def _module(arch_id: str):
     if arch_id in _NOT_PORTED:

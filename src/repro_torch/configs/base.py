@@ -1,8 +1,8 @@
 """Config dataclasses for models and federated rounds.
 
-A copy of the JAX package's ``configs/base.py`` (``ModelConfig`` and
-``FedRoundSpec``), field for field, so that a spec means the same in both
-packages. ``FedRoundSpec`` validates its names against the port's live
+A copy of the JAX package's ``configs/base.py`` (``SSMConfig``,
+``ModelConfig`` and ``FedRoundSpec``), field for field, so that a spec
+means the same in both packages. ``FedRoundSpec`` validates its names against the port's live
 registries, as the reference does, so a name registered at run time
 (``repro_torch.core.register_algorithm``, ``register_compressor``, ...)
 builds a spec.
@@ -13,12 +13,31 @@ import dataclasses
 from typing import Any, Optional
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD state-space block (the JAX package's ``SSMConfig``)."""
+
+    d_state: int
+    head_dim: int = 64
+    expand: int = 2
+    conv_kernel: int = 4
+    chunk_size: int = 256
+    n_groups: int = 1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Model hyper-parameters (the JAX package's ``ModelConfig``).
 
-    ``mla``, ``moe``, ``ssm`` and ``encoder`` hold the JAX package's
-    sub-configs; no model that needs them is ported yet, so the port's
-    model raises when one is set.
+    ``ssm`` holds an :class:`SSMConfig` (the ``"M"`` and ``"Y"`` layers);
+    ``mla``, ``moe`` and ``encoder`` hold the JAX package's other
+    sub-configs, whose models are not ported yet: the port's model
+    raises when one is set.
     """
 
     name: str

@@ -85,7 +85,7 @@ import dataclasses
 import warnings
 from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -161,6 +161,16 @@ def _copy_into(dst, src) -> None:
             v.copy_(src[k])
 
 
+def _grads(loss, leaves: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    """d loss / d each of ``leaves``; a leaf the loss never reads (hymba's
+    ``ln_mamba``) gets zeros of its shape and dtype, as ``jax.grad``
+    gives it."""
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    return [torch.zeros_like(v) if g is None else g
+            for v, g in zip(leaves.values(), grads)]
+
+
 def make_grad_fn(loss_fn: Callable, *, space=None, spec=None,
                  base_params=None) -> Callable:
     """``loss_fn(params, batch) -> (scalar, metrics)``  =>
@@ -188,7 +198,7 @@ def make_grad_fn(loss_fn: Callable, *, space=None, spec=None,
                 leaves = {k: full[k].detach().requires_grad_(True)
                           for k in keys}
                 loss, metrics = loss_fn({**full, **leaves}, batch)
-                grads = torch.autograd.grad(loss, list(leaves.values()))
+                grads = _grads(loss, leaves)
             del full
             with torch.no_grad():
                 out = space.grad_project(spec, base_params, deltas,
@@ -203,7 +213,7 @@ def make_grad_fn(loss_fn: Callable, *, space=None, spec=None,
             leaves = {k: v.detach().requires_grad_(True)
                       for k, v in params.items()}
             loss, metrics = loss_fn(leaves, batch)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            grads = _grads(loss, leaves)
         return (dict(zip(leaves, grads)),
                 {k: v.detach() for k, v in metrics.items()})
 

@@ -1,12 +1,13 @@
-"""Model layers of the llama and gemma3 families (the JAX package's
-``models/layers.py``, their subset): init helpers, RMSNorm, RoPE, dense
-causal and sliding-window GQA attention, the banded local attention of
-``"W"`` layers, and the silu- and gelu-gated MLPs.
+"""Model layers of the llama, gemma3, mamba2 and hymba families (the JAX
+package's ``models/layers.py``, their subset): init helpers, RMSNorm,
+RoPE, dense causal and sliding-window GQA attention, the banded local
+attention of ``"W"`` layers, the silu- and gelu-gated MLPs, and the
+Mamba2 SSD block of ``"M"`` and ``"Y"`` layers.
 
 Conventions as in the reference: activations (B, S, E); q/k/v
 (B, S, H, D); parameters are dicts of tensors. The other layers of the
-reference (layer norm, flash and MLA attention, MoE, Mamba2) are not
-ported yet and raise ``NotImplementedError``.
+reference (layer norm, flash and MLA attention, MoE, Mamba2 decode) are
+not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,11 +24,12 @@ from repro_torch.kernels.swa_attention.ops import swa_attention
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen, shape, dtype, device):
-    """Normal(0, 1/fan_in) weights of a (d_in, d_out) matrix, drawn in fp32
-    and cast to ``dtype``."""
+def dense_init(gen, shape, dtype, device, scale: Optional[float] = None):
+    """Normal(0, scale) weights of a (d_in, d_out) matrix, ``scale``
+    1/sqrt(d_in) unless given, drawn in fp32 and cast to ``dtype``."""
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * (1.0 / math.sqrt(shape[0]))).to(dtype)
+    scale = (1.0 / math.sqrt(shape[0])) if scale is None else scale
+    return (w * scale).to(dtype)
 
 
 def embed_init(gen, shape, dtype, device):
@@ -258,3 +260,117 @@ def mlp_block(cfg, p, x):
     act = (F.silu(gate) if cfg.mlp_kind == "silu_gated"
            else F.gelu(gate, approximate="tanh"))
     return (act * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) block
+# ---------------------------------------------------------------------------
+
+
+def init_mamba(cfg, gen, dtype, device):
+    """Mamba2 parameters, the reference's leaves: the in- and
+    out-projections, the depthwise conv, the gated output norm in
+    ``dtype``; ``a_log``, ``dt_bias`` and ``d_skip`` in fp32 whatever
+    ``dtype`` is."""
+    sm = cfg.ssm
+    e = cfg.d_model
+    di, h, n, g = sm.d_inner(e), sm.n_heads(e), sm.d_state, sm.n_groups
+    conv_dim = di + 2 * g * n
+    f32 = torch.float32
+    return {
+        "w_in": dense_init(gen, (e, 2 * di + 2 * g * n + h), dtype, device),
+        "conv_w": dense_init(gen, (sm.conv_kernel, conv_dim), dtype, device,
+                             scale=0.5),
+        "conv_b": torch.zeros((conv_dim,), dtype=dtype, device=device),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, h, dtype=f32,
+                                          device=device)),
+        "dt_bias": torch.zeros((h,), dtype=f32, device=device),
+        "d_skip": torch.ones((h,), dtype=f32, device=device),
+        "out_norm/scale": torch.zeros((di,), dtype=dtype, device=device),
+        "w_out": dense_init(gen, (di, e), dtype, device),
+    }
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv, x (B, S, C), w (K, C): the reference's sum
+    of K shifted products, each rounded to the parameters' dtype (a
+    ``conv1d`` accumulates in fp32 and rounds bf16 otherwise)."""
+    k, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = sum(xp[:, i:i + s, :] * w[i] for i in range(k))
+    return F.silu(out + b)
+
+
+def _ssd_chunked(xh, dt, a_log, bmat, cmat, d_skip, chunk: int):
+    """SSD (state-space duality) chunked scan, the reference's arithmetic.
+
+    xh (B, S, H, P), dt (B, S, H) after the softplus, bmat and cmat
+    (B, S, N) (one group), a_log (H,). The chunk length is ``min(chunk,
+    S)``, halved until it divides S. Returns y (B, S, H, P) and the final
+    state (B, H, N, P)."""
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    l = min(chunk, s)
+    while s % l != 0:
+        l //= 2
+    nc = s // l
+    a = -torch.exp(a_log)  # (H,), negative
+    xc = xh.reshape(b, nc, l, h, p)
+    dtc = dt.reshape(b, nc, l, h)
+    bc = bmat.reshape(b, nc, l, n)
+    cc = cmat.reshape(b, nc, l, n)
+    seg = torch.cumsum((dt * a).reshape(b, nc, l, h), dim=2)  # log-decay
+    total = seg[:, :, -1:, :]  # (B, nc, 1, H)
+
+    # intra-chunk: quadratic within a chunk, causal
+    cb = torch.einsum("bcln,bcmn->bclm", cc, bc)  # (B, nc, L, L)
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool,
+                                 device=xh.device))[None, None, :, :, None]
+    diff = seg[:, :, :, None, :] - seg[:, :, None, :, :]  # (B, nc, L, L, H)
+    # mask BEFORE the exp: the upper triangle is exp(+large) = inf, and
+    # inf * 0 in a later where still poisons the backward with NaNs
+    diff = torch.where(mask, diff, torch.full((), -math.inf,
+                                              device=xh.device))
+    m = cb[..., None] * torch.exp(diff) * dtc[:, :, None, :, :]
+    m = torch.where(mask, m, torch.zeros((), device=xh.device))
+    y_intra = torch.einsum("bclmh,bcmhp->bclhp", m, xc)
+
+    # each chunk's state: decay from a step to its chunk's end
+    state_decay = torch.exp(total - seg)  # (B, nc, L, H)
+    sc = torch.einsum("bcln,bclh,bclhp->bchnp", bc, dtc * state_decay, xc)
+
+    # inter-chunk recurrence, a loop over the chunks (the reference's scan)
+    chunk_decay = torch.exp(total[:, :, 0, :])  # (B, nc, H)
+    state = torch.zeros((b, h, n, p), dtype=xh.dtype, device=xh.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + sc[:, c]
+    s_prevs = torch.stack(entering, dim=1)  # (B, nc, H, N, P)
+
+    # the state entering each chunk, read out within it
+    y_inter = torch.einsum("bcln,bclh,bchnp->bclhp", cc, torch.exp(seg),
+                           s_prevs)
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    return y + xh * d_skip[None, None, :, None], state
+
+
+def mamba_block(cfg, p, x):
+    """Full-sequence Mamba2 forward, x (B, S, E) -> (B, S, E). The SSD
+    runs in fp32: x, B and C are cast up and ``dt_bias`` is added in
+    fp32, as the reference does."""
+    sm = cfg.ssm
+    b, s, e = x.shape
+    di, h, n, g = sm.d_inner(e), sm.n_heads(e), sm.d_state, sm.n_groups
+    proj = x @ p["w_in"]  # (B, S, 2 di + 2 g n + h)
+    z, xin, bc, dt = torch.split(proj, [di, di, 2 * g * n, h], dim=-1)
+    conv_out = _causal_conv(torch.cat([xin, bc], dim=-1), p["conv_w"],
+                            p["conv_b"])
+    xin, bmat, cmat = torch.split(conv_out, [di, g * n, g * n], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])  # (B, S, H)
+    xh = xin.reshape(b, s, h, sm.head_dim)
+    y, _ = _ssd_chunked(xh.float(), dt, p["a_log"], bmat.float(),
+                        cmat.float(), p["d_skip"], sm.chunk_size)
+    y = y.reshape(b, s, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["out_norm/scale"])
+    return y @ p["w_out"]

@@ -27,10 +27,10 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg) -> None:
-    if (cfg.mla is not None or cfg.moe is not None or cfg.ssm is not None
+    if (cfg.mla is not None or cfg.moe is not None
             or cfg.encoder is not None or cfg.num_prefix_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: MLA / MoE / SSM / encoder / prefix models are not "
+            f"{cfg.name}: MLA / MoE / encoder / prefix models are not "
             f"ported yet")
     if not cfg.tie_embeddings:
         raise NotImplementedError(f"{cfg.name}: untied embeddings are not "
@@ -60,13 +60,28 @@ def init_params(cfg, gen=None, device="cuda") -> Dict[str, torch.Tensor]:
     return params
 
 
+def _mamba_params(cfg) -> int:
+    """Parameters of one Mamba2 block (``layers.init_mamba``)."""
+    sm = cfg.ssm
+    e = cfg.d_model
+    di, h, gn = sm.d_inner(e), sm.n_heads(e), sm.n_groups * sm.d_state
+    conv_dim = di + 2 * gn
+    return (e * (2 * di + 2 * gn + h) + (sm.conv_kernel + 1) * conv_dim
+            + 3 * h + di + di * e)
+
+
 def count_params_analytic(cfg) -> int:
     """Total parameter count from the shapes (no allocation)."""
     _check_supported(cfg)
     e, h, hkv, d, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                        cfg.head_dim, cfg.d_ff)
-    per_layer = 2 * e + e * h * d + 2 * e * hkv * d + h * d * e + 3 * e * f
-    return cfg.vocab_size * e + e + cfg.num_layers * per_layer
+    dense = 2 * e + e * h * d + 2 * e * hkv * d + h * d * e + 3 * e * f
+    per_kind = {"F": dense, "W": dense}
+    if cfg.ssm is not None:
+        per_kind["M"] = e + _mamba_params(cfg)  # ln_attn + mamba
+        per_kind["Y"] = dense + e + _mamba_params(cfg)  # + ln_mamba
+    layers = sum(per_kind[k] for k in cfg.pattern_for_layers())
+    return cfg.vocab_size * e + e + layers
 
 
 # ---------------------------------------------------------------------------

@@ -219,6 +219,9 @@ def _against_reference(jt, tt, int8=False):
 
 @pytest.mark.parametrize("name", sorted(WEIGHTINGS))
 def test_staleness_weights_match_the_reference(name):
+    # the live registries: safe while no test of the JAX package
+    # registers a staleness weighting of its own (none does; compare
+    # tests/test_torch_availability.py's built-in names where one would)
     assert TA.staleness_weighting_names() == JA.staleness_weighting_names()
     tau = np.arange(0, 40, dtype=np.float32)
     for kw in ({}, WEIGHTINGS[name], {"polynomial": dict(alpha=2.0),

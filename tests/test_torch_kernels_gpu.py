@@ -13,7 +13,8 @@ two launches bitwise equal; sliding-window attention (B5) in fp32 to 2e-5
 absolute, in bf16 to 1 bf16 ulp of the plain element plus 2e-5 (both
 round an fp32 result once; the fp32 results differ by the order of their
 sums, which exceeds an ulp only below 2^-8). B1 and B2 also run on a
-LoRA delta tree as the trainer stacks it, and a bf16 checkpoint
+LoRA delta tree as the trainer stacks it and B1 on one hymba layer's
+mixed bf16/fp32 tree (one launch a dtype group), and a bf16 checkpoint
 round-trips on the card bitwise. The scanned engine's rounds, captured
 as CUDA graphs around B1-B5, equal the eager host loop on the same
 device streams (bitwise; the W layer within 1e-4), and the launch counts
@@ -305,13 +306,15 @@ def test_momentum_local_loop_matches_plain(d, bsz):
 # (B, S, Hq, Hkv, D, window): the JAX package's kernel test shapes,
 # gemma3-1b's "W" layer at seq 2048, a ragged S and window, and the bf16
 # kernel's tiling edges at D 256 and 64: S and W not multiples of the
-# 64-row tiles, W >= S, batch 2 with 4 query heads a kv head
+# 64-row tiles, W >= S, batch 2 with 4 query heads a kv head; hymba-1.5b's
+# "Y" attention at seq 2048, batch 1 and 2 (25q/5kv x 64, window 1024)
 SWA_CASES = [(1, 512, 2, 1, 64, 128), (2, 256, 4, 4, 32, 64),
              (1, 384, 6, 3, 64, 128), (2, 128, 2, 1, 128, 64),
              (1, 2048, 4, 1, 256, 512), (1, 200, 2, 1, 32, 50),
              (1, 1000, 4, 1, 256, 300), (1, 1000, 4, 1, 64, 300),
              (1, 300, 4, 1, 256, 512), (1, 300, 2, 1, 64, 300),
-             (2, 512, 4, 1, 256, 128), (2, 1000, 8, 2, 64, 300)]
+             (2, 512, 4, 1, 256, 128), (2, 1000, 8, 2, 64, 300),
+             (1, 2048, 25, 5, 64, 1024), (2, 2048, 25, 5, 64, 1024)]
 
 
 def _swa_plain(q, k, v, w):
@@ -610,6 +613,33 @@ def test_b1_b2_cases_match_plain_twice_bitwise(case, slot):
     (plan,) = ops.plans(y, g, c, m if slot else None)
     assert 1 <= plan.grid <= plan.first[-1]
     assert plan.first[-1] == sum(-(-n // ops.CHUNK) for n in sizes)
+
+
+def test_b1_on_a_mixed_hymba_layer_launches_once_a_dtype_group():
+    """One hymba layer's leaves in a bf16 model (the reduced widths): the
+    weights bf16, the SSD's a_log, dt_bias and d_skip fp32; B1 launches
+    once for each of the two groups, each leaf within 1 ulp of the plain
+    version."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    y = T._init_layer(get_reduced("hymba-1.5b"), gen, "Y", torch.bfloat16,
+                      torch.device("cuda"))
+    assert {k for k, v in y.items() if v.dtype == torch.float32} == {
+        "mamba/a_log", "mamba/dt_bias", "mamba/d_skip"}
+    g = {k: torch.randn(v.shape, generator=gen, device="cuda").to(v.dtype)
+         for k, v in y.items()}
+    corr = {k: (0.1 * torch.randn(v.shape, generator=gen, device="cuda")).to(
+        v.dtype) for k, v in y.items()}
+    assert len(ops.dtype_groups(y, g, corr)) == 2
+    before = ops.LAUNCHES["scaffold_update"]
+    out = ops.scaffold_update_packed(y, g, corr, 0.05)
+    assert ops.LAUNCHES["scaffold_update"] == before + 2
+    for k in y:
+        assert out[k].dtype == y[k].dtype, k
+        assert ulp_distance(out[k], ref.scaffold_update_ref(
+            y[k], g[k], corr[k], 0.05)) <= 1, k
 
 
 def test_b1_refuses_a_group_of_257_leaves():
