@@ -140,8 +140,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the longest sequence whose plan fits (seq cut, not depth): B1 on its
      two dtype groups (24 launches, no B5), s/round and peak memory
      against the plan, a profiled round
+  35. the reduced fp32 minitron (untied embeddings, through the
+     trainer), paligemma (16 patches under the prefix mask) and whisper
+     (encoder over 64 frames, cross-attention), one SCAFFOLD round each
+     on the card vs the CPU, the latter two through ``federated_round``
+     with their stub inputs; ``flash_attention`` (plain PyTorch, no
+     kernel) on the card vs the CPU at S 3072 under each mask
+  36. minitron-4b at its published widths (two 0.79e9 vocab tables),
+     bf16, seq 2048: ``head_only`` on ``unembed*,ln_final*`` at all 32
+     layers through ``launch.train.main`` (B1 8), then the full space
+     through the trainer at the depth ``_lm_plan`` admits, logged as a
+     cut (B1 12)
+  37. paligemma-3b at its published widths, 18 layers, bf16, 256
+     projected patches + 1792 text tokens (the dense prefix-LM path),
+     the full space through ``federated_round``: B1 12, no B5
+  38. gemma3-1b at 26 layers, seq 4096: the 22 "W" layers through B5
+     (264 launches in 3 rounds), the 4 "F" layers through
+     ``flash_attention``, B1 12; a profiled round
+  39. whisper-tiny at its published widths (4 + 4 layers, fp32), 1500
+     frames and 448 text tokens, batch 4, the full space through
+     ``federated_round``: B1 12 on the one fp32 group
 
-Each main path runs with every launch count set to 0 just before it and
+Every LM phase logs its memory plan (``_lm_plan``) against its measured
+peak. Each main path runs with every launch count set to 0 just before it and
 read just after; a launch inside a captured CUDA graph counts at each
 replay. Every kernel's ``launches`` in the kernels line sums the paths
 that run it (``launches_by_path``), the scanned ones included.
@@ -357,13 +378,19 @@ def ulp_distance(a, b):
     import torch
 
     ity = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
-    ia = a.contiguous().view(ity).long()
-    ib = b.contiguous().view(ity).long()
     bits = 31 if a.dtype == torch.float32 else 15
-    # map the sign-magnitude encoding onto a monotone integer line
-    ia = torch.where(ia < 0, -(ia & ((1 << bits) - 1)), ia)
-    ib = torch.where(ib < 0, -(ib & ((1 << bits) - 1)), ib)
-    return int((ia - ib).abs().max())
+    fa, fb = a.contiguous().view(ity).reshape(-1), \
+        b.contiguous().view(ity).reshape(-1)
+    worst = 0
+    # in chunks: the int64 copies of a 0.79e9-element leaf would take 25 GB
+    for lo in range(0, fa.numel(), 1 << 26):
+        ia = fa[lo:lo + (1 << 26)].long()
+        ib = fb[lo:lo + (1 << 26)].long()
+        # map the sign-magnitude encoding onto a monotone integer line
+        ia = torch.where(ia < 0, -(ia & ((1 << bits) - 1)), ia)
+        ib = torch.where(ib < 0, -(ib & ((1 << bits) - 1)), ib)
+        worst = max(worst, int((ia - ib).abs().max()))
+    return worst
 
 
 def bf16_ulp(x: float) -> float:
@@ -1048,54 +1075,100 @@ def _ssm_token_bytes(cfg, seq_len: int) -> int:
             + 8 * 4 * di + 3 * 4 * _ssm_chunk(cfg, seq_len) * h)
 
 
+def _tree_bytes(cfg) -> int:
+    """Bytes of cfg's parameter tree, each leaf in its own dtype (hymba's
+    and mamba2's fp32 SSD leaves in a bf16 model, whisper's fp32 tree),
+    from the tree built on the meta device (nothing allocated)."""
+    import torch
+
+    from repro_torch.models.model import param_tree
+
+    tree = param_tree(cfg, None, torch.device("meta"))
+    return sum(v.numel() * v.element_size() for v in tree.values())
+
+
 def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
-             subset=None, pending: int = 0):
+             subset=None, pending: int = 0, stack_grads: bool = True):
     """Reckoned peak device bytes of an LM phase at cfg's depth: the
-    param-sized bf16 trees resident at once (x, c, the dy and dc sums, the
-    client's c_i, c - c_i, its working copy y, and the grads or, after the
-    steps, c_i_new and dc: 8), the client's solver slot (``slot_bytes`` a
-    parameter), plus activations (the S^2 scores of the "F" layers only:
-    a "W" or "Y" layer keeps its q, k and v and recomputes its band in
-    the backward pass; an "M" or "Y" layer's Mamba2 block
-    ``_ssm_token_bytes`` a token) and temporaries (the CE's vocab chunks
-    and the largest stacked leaf's gradient among them).
+    param-sized trees resident at once, each leaf in its dtype (x, c, the
+    dy and dc sums, the client's c_i, c - c_i, its working copy y, and
+    the grads or, after the steps, c_i_new and dc: 8), the client's
+    solver slot (``slot_bytes`` a parameter), plus activations in the
+    compute dtype (the S^2 probabilities of the dense "F" layers only,
+    fp32 and in v's dtype, and one layer's fp32 score gradients: a "W"
+    or "Y" layer keeps its q, k and v and recomputes its band in the
+    backward pass, and an "F" layer past ``layers.FLASH_THRESHOLD``
+    tokens keeps its fp32 q and one fp32 carry a kv block, recomputing
+    each block's scores; an "M" or "Y" layer's Mamba2 block
+    ``_ssm_token_bytes`` a token; an encoder's layers over its frames and the decoder's cross
+    scores) and temporaries (the gradients of the vocab tables, both
+    when the embeddings are untied; the CE's vocab chunks, or its full
+    logits without chunks; the largest stacked leaf's gradient once).
 
     ``subset`` = (target params, delta-tree bytes) plans an update space
-    that trains a subset instead: the frozen bf16 base, the targets
-    merged and their bf16 gradients (2 target-sized trees), the merge's
-    and the projection's fp32 temporaries of the largest target (3), and
-    the 8 trees above at the delta tree's size.
+    that trains a subset instead: the frozen base, the targets merged and
+    their gradients (2 target-sized trees), the merge's and the
+    projection's temporaries of the largest target (3), and the 8 trees
+    above at the delta tree's size. ``stack_grads`` False plans targets
+    that all sit above the layers (``unembed``, ``ln_final``): the
+    layers then keep no activations for a backward pass.
 
     ``pending`` > 0 plans the async engine (``client_parallel``): its
     dy and dc sums are fp32 (2 trees more than bf16 sums), and each
     pending update keeps its dy and dc on the card (2 trees each; at most
     ``max_inflight + buffer_size - 1`` pending while an aggregation
     runs)."""
-    from repro_torch.models.model import count_params_analytic
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import _dtype, count_params_analytic
 
     n = count_params_analytic(cfg)
-    tree = 2 * n  # bf16
+    tree = _tree_bytes(cfg)
+    pb = _dtype(cfg.param_dtype).itemsize
+    ab = _dtype(cfg.compute_dtype).itemsize
     t = seq_len * local_batch
-    e, f = cfg.d_model, cfg.d_ff
+    e, f, h = cfg.d_model, cfg.d_ff, cfg.num_heads
     pattern = cfg.pattern_for_layers()
     n_full = pattern.count("F")
     n_attn = sum(k != "M" for k in pattern)
-    act = (n_attn * t * (10 * e + 5 * f) * 2
-           + n_full * 2 * cfg.num_heads * seq_len ** 2 * 4 * local_batch)
+    act = n_attn * t * (10 * e + 5 * f) * ab
+    if seq_len > L.FLASH_THRESHOLD:
+        blocks = -(-seq_len // L.FLASH_BLOCK_KV)
+        act += (n_full * (blocks + 1) * t * h * cfg.head_dim * 4
+                + 4 * h * t * L.FLASH_BLOCK_KV * 4)
+    elif n_full:
+        # kept a layer: the fp32 softmax and the probabilities in v's
+        # dtype; in one layer's backward at a time, two fp32 score grads
+        act += (n_full * (4 + ab) + 2 * 4) * h * seq_len ** 2 * local_batch
     act += sum(k in "MY" for k in pattern) * t * _ssm_token_bytes(
         cfg, seq_len)
-    largest = 2 * cfg.num_layers * e * max(f, _ssm_proj_width(cfg))
-    temps = (2 * 2 * cfg.vocab_size * e + 4 * largest
-             + 4 * t * cfg.loss_chunk_vocab * 4)
+    if cfg.encoder is not None:
+        frames = cfg.encoder.num_frames
+        act += cfg.encoder.num_layers * local_batch * (
+            frames * (10 * e + 5 * f) * ab + 2 * h * frames ** 2 * 4)
+        act += n_full * 2 * h * t * frames * 4  # the cross scores
+    if not stack_grads:
+        act = 0
+    largest = pb * cfg.num_layers * e * max(f, _ssm_proj_width(cfg))
+    tables = 1 if cfg.tie_embeddings else 2
+    temps = 2 * pb * tables * cfg.vocab_size * e + largest
+    temps += (4 * t * cfg.loss_chunk_vocab * 4 if cfg.loss_chunk_vocab
+              else 3 * t * cfg.vocab_size * 4)
     if subset is not None:
         n_t, delta_bytes = subset
-        trees = tree + 2 * 2 * n_t + 3 * 2 * largest + 8 * delta_bytes
+        trees = tree + 2 * pb * n_t + 3 * largest + 8 * delta_bytes
         if pending:
             trees += 2 * delta_bytes + pending * 2 * delta_bytes
         return n, tree, trees + act + temps
     if pending:
         temps += 2 * tree + pending * 2 * tree
     return n, tree, 8 * tree + slot_bytes * n + act + temps
+
+
+def _plan_vs_peak(tag: str, plan: int, peak: int) -> None:
+    """Log an LM phase's reckoned device bytes against its measured peak
+    (``torch.cuda.max_memory_allocated``)."""
+    log(f"{tag}: plan {plan / 1e9:.2f} GB against the peak "
+        f"{peak / 1e9:.2f} GB ({(plan - peak) / 1e9:+.2f} GB over-reckoned)")
 
 
 def _lm_fit(spec, seq_len: int, slot_bytes: int = 0,
@@ -1129,7 +1202,9 @@ def _lm_fit(spec, seq_len: int, slot_bytes: int = 0,
                f"{sm.d_state}, chunk {_ssm_chunk(cfg, seq_len)}")
     log(f"lm: {cfg.name} widths (d_model {cfg.d_model}, {cfg.num_heads}q/"
         f"{cfg.num_kv_heads}kv heads x {cfg.head_dim}, d_ff {cfg.d_ff}, "
-        f"{cfg.mlp_kind}, vocab {cfg.vocab_size}, tied, bf16, pattern "
+        f"{cfg.mlp_kind}, vocab {cfg.vocab_size}, "
+        f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.param_dtype}, "
+        f"pattern "
         f"{cfg.layer_pattern}{ssm}), CE over vocab chunks of "
         f"{cfg.loss_chunk_vocab}; {n} params, {tree / 1e9:.2f} GB a tree")
     log(f"lm: memory reckoning at num_layers {depth}, seq {seq_len}: 8 "
@@ -1190,9 +1265,14 @@ def _profile_round(tr, tag: str, kernels=(), want=None, tries=1):
             tr.run_round()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        # the profiler's own time after the round: its trace collected as
+        # the block exits, then aggregated
+        collect = time.perf_counter() - t0 - wall
         made = {k: v - before[k] for k, v in launches().items()}
         want_now = want(made) if callable(want) else want
+        t1 = time.perf_counter()
         avgs = prof.key_averages()
+        collect += time.perf_counter() - t1
         # device-side events only (kernels, copies): CPU ops also carry
         # the device time of the kernels they launched
         dev_events = [e for e in avgs if _device_time_ms(e) > 0
@@ -1223,8 +1303,12 @@ def _profile_round(tr, tag: str, kernels=(), want=None, tries=1):
     sort_key = ("self_device_time_total" if hasattr(avgs[0],
                 "self_device_time_total") else "self_cuda_time_total")
     OUT.mkdir(parents=True, exist_ok=True)
+    t1 = time.perf_counter()
     (OUT / f"{tag}_profile.txt").write_text(avgs.table(sort_by=sort_key,
                                                        row_limit=40))
+    log(f"{tag} profiled round: the profiler's own processing "
+        f"{collect + time.perf_counter() - t1:.1f} s after the last try "
+        f"({sum(e.count for e in avgs)} events)")
     return busy / wall if busy > 0 else None
 
 
@@ -1251,19 +1335,21 @@ def phase_lm_full(result):
     tokens = spec.num_sampled * spec.local_steps * spec.local_batch * seq_len
 
     reset_launches()
-    secs = []
+    secs, peaks = [], []
     for r in range(rounds):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         m = tr.run_round()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        peak_mem = torch.cuda.max_memory_allocated()
+        peaks.append(torch.cuda.max_memory_allocated())
         log(f"lm round {r + 1}: loss {m['loss']:.4f}, drift {m['drift']:.4e},"
             f" {secs[-1]:.3f} s, {tokens / secs[-1]:.1f} tokens/s, peak "
-            f"device memory {peak_mem / 1e9:.2f} GB")
+            f"device memory {peaks[-1] / 1e9:.2f} GB")
         if not (math.isfinite(m["loss"]) and math.isfinite(m["drift"])):
             raise AssertionError(f"lm round {r + 1}: non-finite {m}")
+    _plan_vs_peak("lm", _lm_plan(cfg, seq_len, spec.local_batch)[2],
+                  max(peaks))
     counts = launches()
     want = rounds * spec.num_sampled * spec.local_steps * groups
     log(f"lm: scaffold_update launches {counts['scaffold_update']} == rounds"
@@ -1358,12 +1444,14 @@ def phase_gemma_full(result):
     tokens = steps * spec.local_batch * seq_len
 
     reset_launches()
+    peak = 0
     for r in range(rounds):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         m = tr.run_round()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        peak = max(peak, torch.cuda.max_memory_allocated())
         log(f"gemma round {r + 1}: loss {m['loss']:.4f}, drift "
             f"{m['drift']:.4e}, {sec:.3f} s, {tokens / sec:.1f} tokens/s "
             f"({tokens} tokens), peak device memory "
@@ -1371,6 +1459,7 @@ def phase_gemma_full(result):
             f"memory {host_peak_gb():.1f} GB")
         if not (math.isfinite(m["loss"]) and math.isfinite(m["drift"])):
             raise AssertionError(f"gemma round {r + 1}: non-finite {m}")
+    _plan_vs_peak("gemma", _lm_plan(cfg, seq_len, spec.local_batch)[2], peak)
     counts = launches()
     want = {k: 0 for k in counts}
     want.update(swa_attention=n_w * steps * rounds,
@@ -1416,12 +1505,14 @@ def phase_lm_momentum(result):
     tokens = spec.num_sampled * spec.local_steps * spec.local_batch * seq_len
 
     reset_launches()
+    peak = 0
     for r in range(rounds):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         m = tr.run_round()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        peak = max(peak, torch.cuda.max_memory_allocated())
         log(f"lm momentum round {r + 1}: loss {m['loss']:.4f}, drift "
             f"{m['drift']:.4e}, {sec:.3f} s, {tokens / sec:.1f} tokens/s, "
             f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
@@ -1440,6 +1531,8 @@ def phase_lm_momentum(result):
             if not all(v > 0 for v in seen):
                 raise AssertionError("lm momentum: zero slot rows after "
                                      "round 1")
+    _plan_vs_peak("lm momentum", _lm_plan(cfg, seq_len, spec.local_batch,
+                                          slot_bytes=4)[2], peak)
     counts = launches()
     want = rounds * spec.num_sampled * spec.local_steps * groups
     log(f"lm momentum: scaffold_momentum_update launches "
@@ -1535,14 +1628,15 @@ def _space_sizes(cfg, space: str, rank: int = 0):
     return n, n
 
 
-def _subset_plan(tag, cfg, seq_len, space, rank=0):
+def _subset_plan(tag, cfg, seq_len, space, rank=0, stack_grads=True):
     """Log the device-memory plan of a subset-space phase at its full
     depth (these phases run through the entry point at the published
     config, so depth is not cut: a plan over the limit fails). Returns
-    the delta tree's elements."""
+    the delta tree's elements and the plan."""
     n_t, n_delta = _space_sizes(cfg, space, rank)
     delta_bytes = n_delta * (4 if space == "lora" else 2)
-    n, tree, peak = _lm_plan(cfg, seq_len, 1, subset=(n_t, delta_bytes))
+    n, tree, peak = _lm_plan(cfg, seq_len, 1, subset=(n_t, delta_bytes),
+                             stack_grads=stack_grads)
     log(f"{tag}: {cfg.name} at its published widths, {cfg.num_layers} "
         f"layers, {n} bf16 params ({tree / 1e9:.2f} GB frozen); {space} "
         f"targets hold {n_t} params, the delta tree {n_delta} elements "
@@ -1551,7 +1645,7 @@ def _subset_plan(tag, cfg, seq_len, space, rank=0):
     if peak > LM_MEMORY_LIMIT:
         raise AssertionError(f"{tag}: plan {peak / 1e9:.1f} GB over the "
                              f"limit")
-    return n_delta
+    return n_delta, peak
 
 
 def _train_argv(arch: str, seq_len: int, rounds: int, chunk: int, *extra):
@@ -1570,10 +1664,11 @@ class _RoundLog:
     entry point makes) is timed by the host clock, the card synchronised
     on both sides, and logged with its tokens/s, peak card and host
     memory and ``update_space``; ``rows`` keeps each round's metrics and
-    seconds."""
+    seconds. With a ``plan`` (bytes) the block's end logs it against the
+    rounds' peak."""
 
-    def __init__(self, tag: str, tokens: int):
-        self.tag, self.tokens, self.rows = tag, tokens, []
+    def __init__(self, tag: str, tokens: int, plan: int = 0):
+        self.tag, self.tokens, self.rows, self.plan = tag, tokens, [], plan
 
     def __enter__(self):
         import torch
@@ -1610,6 +1705,9 @@ class _RoundLog:
 
     def __exit__(self, *exc):
         self._cls.run_round = self._inner
+        if self.plan and self.rows and exc[0] is None:
+            _plan_vs_peak(self.tag, self.plan,
+                          max(r["peak_bytes"] for r in self.rows))
         return False
 
 
@@ -1663,6 +1761,7 @@ def _time_update_tree(tag, x, c, eta, beta=None):
             plain = ref.scaffold_update_ref(y[k], g[k], corr[k], eta)
             worst = (max(worst[0], ulp_distance(out[k], plain)), 0)
             err = max(err, float((out[k].float() - plain.float()).abs().max()))
+        del out, plain  # the timed calls write into y
         ok = worst[0] <= 1
 
         def kernel():
@@ -1750,11 +1849,12 @@ def phase_lora_llama(result):
     seq_len, rounds, chunk = 256, 3, 16032
     cfg = dataclasses.replace(get_config("llama3.2-3b"),
                               loss_chunk_vocab=chunk)
-    elements = _subset_plan("lora llama", cfg, seq_len, "lora", LORA_RANK)
+    elements, plan = _subset_plan("lora llama", cfg, seq_len,
+                                  "lora", LORA_RANK)
     steps, tokens = 2 * 2, 2 * 2 * seq_len
     reset_launches()
     t0 = time.perf_counter()
-    with _RoundLog("lora llama", tokens) as rl:
+    with _RoundLog("lora llama", tokens, plan) as rl:
         tr = train.main(_train_argv(
             "llama3.2-3b", seq_len, rounds, chunk, "--update-space", "lora",
             "--lora-rank", str(LORA_RANK)))
@@ -1807,7 +1907,8 @@ def phase_lora_gemma(result):
     base = get_config("gemma3-1b")
     seq_len, chunk = 2048, base.vocab_size // 16
     cfg = dataclasses.replace(base, loss_chunk_vocab=chunk)
-    elements = _subset_plan("lora gemma", cfg, seq_len, "lora", LORA_RANK)
+    elements, plan = _subset_plan("lora gemma", cfg, seq_len,
+                                  "lora", LORA_RANK)
     n_w, steps = cfg.pattern_for_layers().count("W"), 2 * 2
     tokens = steps * seq_len
     lora = ("--update-space", "lora", "--lora-rank", str(LORA_RANK))
@@ -1816,7 +1917,7 @@ def phase_lora_gemma(result):
     def run(tag, rounds, *extra):
         reset_launches()
         t0 = time.perf_counter()
-        with _RoundLog(f"lora gemma, {tag}", tokens) as rl:
+        with _RoundLog(f"lora gemma, {tag}", tokens, plan) as rl:
             tr = train.main(_train_argv("gemma3-1b", seq_len, rounds, chunk,
                                         *lora, *extra))
         counts = launches()
@@ -1904,11 +2005,11 @@ def phase_head_only_gemma(result):
     base = get_config("gemma3-1b")
     seq_len, rounds, chunk = 2048, 2, base.vocab_size // 16
     cfg = dataclasses.replace(base, loss_chunk_vocab=chunk)
-    elements = _subset_plan("head_only gemma", cfg, seq_len, "head_only")
+    elements, plan = _subset_plan("head_only gemma", cfg, seq_len, "head_only")
     n_w, steps = cfg.pattern_for_layers().count("W"), 2 * 2
     reset_launches()
     t0 = time.perf_counter()
-    with _RoundLog("head_only gemma", steps * seq_len) as rl:
+    with _RoundLog("head_only gemma", steps * seq_len, plan) as rl:
         tr = train.main(_train_argv("gemma3-1b", seq_len, rounds, chunk,
                                     "--update-space", "head_only",
                                     "--lora-targets", HEAD_TARGETS))
@@ -3177,6 +3278,7 @@ def phase_gemma_scanned(result):
     train.preset_config = lambda arch, p: dataclasses.replace(
         preset(arch, p), num_layers=layers)
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.perf_counter()
         tr = train.main(_train_argv("gemma3-1b", seq_len, rounds, chunk,
@@ -3186,6 +3288,10 @@ def phase_gemma_scanned(result):
         wall = time.perf_counter() - t0
     finally:
         train.preset_config = preset
+    # the scanned engine's plan: the host loop's, its device store of N
+    # c_i rows and the captured round's static buffers aside
+    _plan_vs_peak("gemma3-1b scanned", _lm_plan(cfg, seq_len, 1)[2],
+                  torch.cuda.max_memory_allocated())
     counts = launches()
     n_w = cfg.pattern_for_layers().count("W")
     steps = tr.spec.num_sampled * tr.spec.local_steps
@@ -3570,12 +3676,16 @@ def phase_pipelined(result):
             reset_launches()
             del repaired[:]
             secs = []
+            torch.cuda.reset_peak_memory_stats()
             for _ in range(rounds):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 tr.run_round()
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
+            _plan_vs_peak(f"pipelined gemma3-1b depth {depth}",
+                          _lm_plan(cfg, seq_len, spec.local_batch)[2],
+                          torch.cuda.max_memory_allocated())
             n = launches()
             want = _want_launches(swa_attention=n_w * steps * rounds,
                                   scaffold_update=steps * groups * rounds)
@@ -3981,10 +4091,10 @@ def phase_async_gemma(result):
     n_w, K, M, inflight = cfg.pattern_for_layers().count("W"), 2, 2, 3
     _, tree, plan = _lm_plan(cfg, seq_len, 1, pending=M + inflight - 1)
 
-    def run(tag, rounds, *extra, after=None):
+    def run(tag, rounds, *extra, after=None, plan=0):
         reset_launches()
         t0 = time.perf_counter()
-        with _RoundLog(f"async gemma, {tag}", M * K * seq_len) as rl:
+        with _RoundLog(f"async gemma, {tag}", M * K * seq_len, plan) as rl:
             tr = train.main(_train_argv("gemma3-1b", seq_len, rounds, chunk,
                                         *ASYNC_GEMMA, *extra))
             if after is not None:
@@ -4038,8 +4148,12 @@ def phase_async_gemma(result):
         unbroken.update({f"x/{k}": v.cpu() for k, v in tr.x.items()})
         unbroken.update({f"c/{k}": v.cpu() for k, v in tr.c.items()})
 
+    n_t, n_delta = _space_sizes(cfg, "lora", LORA_RANK)
+    lora_plan = _lm_plan(cfg, seq_len, 1, subset=(n_t, 4 * n_delta),
+                         pending=M + inflight - 1)[2]
     tr, rows = run("lora, 2 aggregations, --checkpoint, aggregation 3", 2,
-                   *lora, "--checkpoint", str(ckpt), after=third)
+                   *lora, "--checkpoint", str(ckpt), after=third,
+                   plan=lora_plan)
     pending = unbroken.pop("pending")
     tr.close()
     del tr
@@ -4103,7 +4217,7 @@ def phase_ssm_small():
             raise AssertionError(f"ssm check {arch}: launches {counts}")
 
 
-def _ssm_rounds(tag, cfg, spec, seq_len, rounds, plan):
+def _lm_rounds(tag, cfg, spec, seq_len, rounds, plan):
     """``rounds`` SCAFFOLD rounds of ``cfg`` on the card from a fresh
     trainer, each logged with its seconds, tokens/s and peak device
     memory beside the plan; returns the trainer, its launches and the
@@ -4139,7 +4253,7 @@ def _ssm_rounds(tag, cfg, spec, seq_len, rounds, plan):
     return tr, launches(), secs, peaks
 
 
-def _ssm_spec():
+def _lm_spec():
     from repro_torch.configs.base import FedRoundSpec
 
     return FedRoundSpec(algorithm="scaffold", num_clients=4, num_sampled=2,
@@ -4162,13 +4276,13 @@ def phase_hymba_full(result):
     from repro_torch.launch import train
 
     seq_len, rounds = 2048, 3
-    spec = _ssm_spec()
+    spec = _lm_spec()
     cfg, _, _ = _lm_fit(spec, seq_len, arch="hymba-1.5b", chunk=SSM_CHUNK)
     if cfg.num_layers != get_config("hymba-1.5b").num_layers:
         raise AssertionError(f"hymba: the memory plan cut depth to "
                              f"{cfg.num_layers} layers")
     plan = _lm_plan(cfg, seq_len, spec.local_batch)[2]
-    tr, counts, secs, peaks = _ssm_rounds("hymba", cfg, spec, seq_len,
+    tr, counts, secs, peaks = _lm_rounds("hymba", cfg, spec, seq_len,
                                           rounds, plan)
     groups = len(_b1_groups(tr))
     steps = spec.num_sampled * spec.local_steps
@@ -4203,9 +4317,10 @@ def phase_hymba_full(result):
     lora_rounds = 2
     cfg = dataclasses.replace(get_config("hymba-1.5b"),
                               loss_chunk_vocab=SSM_CHUNK)
-    elements = _subset_plan("lora hymba", cfg, seq_len, "lora", LORA_RANK)
+    elements, plan = _subset_plan("lora hymba", cfg, seq_len,
+                                  "lora", LORA_RANK)
     reset_launches()
-    with _RoundLog("lora hymba", steps * seq_len) as rl:
+    with _RoundLog("lora hymba", steps * seq_len, plan) as rl:
         tr = train.main(_train_argv(
             "hymba-1.5b", seq_len, lora_rounds, SSM_CHUNK, "--update-space",
             "lora", "--lora-rank", str(LORA_RANK)))
@@ -4248,7 +4363,7 @@ def phase_mamba2_full(result):
 
     from repro_torch.configs import get_config
 
-    spec, rounds = _ssm_spec(), 3
+    spec, rounds = _lm_spec(), 3
     base = dataclasses.replace(get_config("mamba2-2.7b"),
                                loss_chunk_vocab=SSM_CHUNK)
     for seq_len in MAMBA2_SEQS:
@@ -4264,7 +4379,7 @@ def phase_mamba2_full(result):
     if cfg.num_layers != base.num_layers:
         raise AssertionError(f"mamba2: the memory plan cut depth to "
                              f"{cfg.num_layers} layers at seq {seq_len}")
-    tr, counts, secs, peaks = _ssm_rounds("mamba2", cfg, spec, seq_len,
+    tr, counts, secs, peaks = _lm_rounds("mamba2", cfg, spec, seq_len,
                                           rounds, plan)
     groups = len(_b1_groups(tr))
     steps = spec.num_sampled * spec.local_steps
@@ -4284,6 +4399,408 @@ def phase_mamba2_full(result):
     tr.close()
     del tr
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# untied embeddings, the prefix LM, long "F" sequences, the encoder-decoder
+# ---------------------------------------------------------------------------
+
+# the CE vocab chunks of minitron-4b (16 chunks of its 256000) and
+# paligemma-3b (16 of its 257216)
+MINITRON_CHUNK, PALIGEMMA_CHUNK = 16000, 16076
+MINITRON_HEAD = "unembed*,ln_final*"
+# flash_attention card vs CPU: (B, S, Hq, Hkv, D, mask): S 3072 is three
+# kv blocks of 1024; gemma3-1b's "F" layer (4q/1kv x 256) and GQA n_rep 2
+FLASH_CASES = ((1, 3072, 4, 1, 256, "causal"), (1, 3072, 4, 2, 64, "prefix"),
+               (2, 3072, 4, 2, 64, "full"))
+
+
+def _fed_batch(cfg, spec, text_len, gen):
+    """One round's batch of ``cfg`` on the card, leaves (S, K, b, ...):
+    tokens and next-token labels drawn uniformly, and the stub
+    frontends' ``patches`` (prefix LM) or ``frames`` (encoder-decoder)
+    as normals in the compute dtype, from the card generator ``gen``."""
+    import torch
+
+    from repro_torch.models.model import _dtype
+
+    lead = (spec.num_sampled, spec.local_steps, spec.local_batch)
+    toks = torch.randint(0, cfg.vocab_size, lead + (text_len + 1,),
+                         generator=gen, device=gen.device)
+    batch = {"tokens": toks[..., :-1].contiguous(),
+             "labels": toks[..., 1:].contiguous()}
+    dt = _dtype(cfg.compute_dtype)
+    if cfg.num_prefix_tokens:
+        batch["patches"] = torch.randn(
+            lead + (cfg.num_prefix_tokens, cfg.d_model), generator=gen,
+            device=gen.device).to(dt)
+    if cfg.encoder is not None:
+        batch["frames"] = torch.randn(
+            lead + (cfg.encoder.num_frames, cfg.d_model), generator=gen,
+            device=gen.device).to(dt)
+    return batch
+
+
+def _fed_state(cfg, spec, x):
+    """c (zeros on x's device) and the S sampled clients' c_i rows (zeros
+    on the host: ``run_round`` moves a client's rows to the card only
+    while it runs)."""
+    import torch
+
+    c = {k: torch.zeros_like(v) for k, v in x.items()}
+    c_i = {k: torch.zeros((spec.num_sampled,) + tuple(v.shape),
+                          dtype=v.dtype) for k, v in x.items()}
+    return c, c_i
+
+
+def _card_vs_cpu_fed_round(arch: str, text_len: int):
+    """One SCAFFOLD ``federated_round`` of ``arch``'s reduced fp32 config
+    on the card (B1) and on the CPU (plain) from the same weights, c,
+    c_i and batch (drawn on the CPU); returns the max leaf error of x, c
+    and c_i, each side's launch counts and the round's local steps. A
+    leaf's error is relative to its largest element. A c or c_i leaf,
+    Option II's ``(x - y_K) / (K eta_l)`` less c, has an absolute floor
+    of 16 fp32 eps of x's largest element over ``K eta_l``, so the error
+    is relative to the larger of its largest element and that floor over
+    the bound 1e-4: a step's rounding of y is an ulp of x, and the
+    difference divides it by ``K eta_l``."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.core import federated_round, make_grad_fn
+    from repro_torch.models import model as M
+
+    cfg = get_reduced(arch)
+    spec = FedRoundSpec(algorithm="scaffold", num_clients=4, num_sampled=2,
+                        local_steps=2, local_batch=1, eta_l=0.05)
+    gen = torch.Generator().manual_seed(0)
+    x0 = M.init_params(cfg, gen, device="cpu")
+    c0 = {k: 0.01 * torch.randn(v.shape, generator=gen)
+          for k, v in x0.items()}
+    ci0 = {k: 0.01 * torch.randn((2,) + tuple(v.shape), generator=gen)
+           for k, v in x0.items()}
+    batch0 = _fed_batch(cfg, spec, text_len, gen)
+    grad_fn = make_grad_fn(partial(M.loss_fn, cfg))
+    outs, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        x = {k: v.to(dev) for k, v in x0.items()}
+        c = {k: v.to(dev) for k, v in c0.items()}
+        batch = {k: v.to(dev) for k, v in batch0.items()}
+        reset_launches()
+        got = federated_round(grad_fn, spec, x, c,
+                              {k: v.clone() for k, v in ci0.items()}, batch,
+                              use_fused_update=True)
+        counts[dev] = launches()
+        outs[dev] = [{k: v.cpu() for k, v in t.items()} for t in got[:3]]
+    k_eta = spec.local_steps * spec.eta_l
+    err, worst = 0.0, ""
+    eps = torch.finfo(torch.float32).eps
+    for k, x in outs["cpu"][0].items():
+        floor = 16 * eps * float(x.abs().max()) / k_eta / 1e-4
+        for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
+            scale = max(float(b[k].abs().max()), floor if i else 0.0, 1e-30)
+            e = float((a[k].double() - b[k].double()).abs().max()) / scale
+            if e > err:
+                err, worst = e, f"{('x', 'c', 'c_i')[i]} {k}"
+    log(f"new check {arch}: the worst leaf is {worst} ({err:.2e})")
+    return err, counts, spec.num_sampled * spec.local_steps
+
+
+def _check_flash_attention(result) -> None:
+    """``layers.flash_attention`` on the card (plain PyTorch: the
+    reference has no kernel here) against the same call on the CPU at
+    S 3072 (three kv blocks), fp32, each mask: within 1e-5 of the
+    output's largest element; no kernel of the port launches."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(11)
+    for b, s, hq, hkv, d, mask in FLASH_CASES:
+        q = torch.randn((b, s, hq, d), generator=gen)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen) for _ in range(2))
+        want = L.flash_attention(q, k, v, mask_kind=mask, prefix_len=256)
+        reset_launches()
+        got = L.flash_attention(q.cuda(), k.cuda(), v.cuda(),
+                                mask_kind=mask, prefix_len=256)
+        torch.cuda.synchronize()
+        err = rel_err(got.cpu(), want)
+        log(f"flash check: flash_attention (B {b}, S {s}, {hq}q/{hkv}kv x "
+            f"{d}, {mask}) on the card vs the CPU: rel err {err:.2e} "
+            f"(bound 1e-5); launches {launches()}")
+        if not err <= 1e-5 or any(launches().values()):
+            raise AssertionError(f"flash check {mask}: rel err {err}")
+        result.setdefault("flash", {})[f"{mask} S {s}"] = err
+
+
+def phase_new_small(result):
+    """Phase 35: the reduced fp32 minitron (untied, through the trainer),
+    paligemma (16 patches, prefix mask) and whisper (2 + 2 layers over
+    64 frames), one SCAFFOLD round each on the card vs the CPU, the
+    latter two through ``federated_round`` with their stub inputs;
+    ``flash_attention`` on the card vs the CPU at S 3072."""
+    err, counts, steps = _card_vs_cpu_round("minitron-4b", 32)
+    checks = [("minitron-4b", err, counts, steps)]
+    for arch in ("paligemma-3b", "whisper-tiny"):
+        checks.append((arch, *_card_vs_cpu_fed_round(arch, 32)))
+    for arch, err, counts, steps in checks:
+        want = {k: 0 for k in counts["cuda"]}
+        want.update(scaffold_update=steps)
+        log(f"new check: 2-layer fp32 {arch}, one SCAFFOLD round on the card"
+            f" (B1) vs the CPU (plain): max leaf err {err:.2e} (bound 1e-4;"
+            f" relative, c and c_i with a floor of 16 eps x over K eta_l);"
+            f" card "
+            f"launches {counts['cuda']} (want scaffold_update {steps}, "
+            f"nothing else)")
+        if not err <= 1e-4:
+            raise AssertionError(f"new check {arch}: rel err {err}")
+        if counts["cuda"] != want or any(counts["cpu"].values()):
+            raise AssertionError(f"new check {arch}: launches {counts}")
+        result.setdefault("b1_paths", {})[f"{arch} card vs CPU"] = steps
+    _check_flash_attention(result)
+
+
+def _fed_rounds(tag, cfg, spec, text_len, rounds, plan, result):
+    """``rounds`` SCAFFOLD rounds of ``cfg`` through ``federated_round`` on
+    the card (x, c and the batches there, the c_i rows on the host), each
+    batch drawn on the card from a seeded generator; each round logged
+    with its seconds, tokens/s and peak device memory beside the plan;
+    then B1 held to its plain version and timed on the trained x and c
+    (``result['b1']['trees'][tag]``). Returns the launches, the rounds'
+    seconds and peaks, and the first and last rounds' losses."""
+    import torch
+
+    from repro_torch.core import federated_round, make_grad_fn
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = M.init_params(cfg, gen, device="cuda")
+    c, c_i = _fed_state(cfg, spec, x)
+    grad_fn = make_grad_fn(partial(M.loss_fn, cfg))
+    torch.cuda.synchronize()
+    log(f"{tag}: set-up {time.perf_counter() - t0:.1f} s (init on the card, "
+        f"c_i rows of {sum(v.nbytes for v in c_i.values()) / 1e9:.2f} GB on "
+        f"the host); x in {len(x)} leaves, "
+        f"{sum(v.numel() for v in x.values())} "
+        f"{str(next(iter(x.values())).dtype).split('.')[-1]}")
+    tokens = spec.num_sampled * spec.local_steps * spec.local_batch * (
+        text_len + cfg.num_prefix_tokens)
+    secs, peaks, losses = [], [], []
+    reset_launches()
+    for r in range(rounds):
+        batch = _fed_batch(cfg, spec, text_len, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        x, c, c_i, m = federated_round(grad_fn, spec, x, c, c_i, batch,
+                                       use_fused_update=True)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated())
+        losses.append(float(m["loss"]))
+        log(f"{tag} round {r + 1}: loss {losses[-1]:.4f}, drift "
+            f"{float(m['drift']):.4e}, {secs[-1]:.3f} s, "
+            f"{tokens / secs[-1]:.1f} tokens/s ({tokens} tokens), peak "
+            f"device memory {peaks[-1] / 1e9:.2f} GB (planned "
+            f"{plan / 1e9:.2f} GB), peak host memory {host_peak_gb():.1f} GB")
+        if not (math.isfinite(losses[-1]) and math.isfinite(
+                float(m["drift"]))):
+            raise AssertionError(f"{tag} round {r + 1}: non-finite {m}")
+    counts = launches()
+    finite = all(bool(torch.isfinite(v).all())
+                 for t in (x, c) for v in t.values())
+    if not finite:
+        raise AssertionError(f"{tag}: non-finite x or c after {rounds} "
+                             f"rounds")
+    del c_i
+    torch.cuda.empty_cache()
+    result["b1"].setdefault("trees", {})[tag] = _time_update_tree(
+        f"scaffold_update at the {tag} tree", x, c, spec.eta_l)
+    del x, c
+    torch.cuda.empty_cache()
+    return counts, secs, peaks, losses
+
+
+def _want_b1(tag, counts, spec, groups, rounds, b5=0):
+    """Hold the launch counts to B1 = S x K x groups x rounds and B5 =
+    ``b5``, nothing else; returns the B1 count."""
+    steps = spec.num_sampled * spec.local_steps
+    want = {k: 0 for k in counts}
+    want.update(scaffold_update=steps * groups * rounds, swa_attention=b5)
+    log(f"{tag}: launches {counts}; want scaffold_update = S "
+        f"{spec.num_sampled} x K {spec.local_steps} x groups {groups} x "
+        f"rounds {rounds} = {want['scaffold_update']}, swa_attention {b5}, "
+        f"nothing else")
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+    return want["scaffold_update"]
+
+
+def phase_minitron_full(result):
+    """Phase 36: minitron-4b at its published widths (two 0.79e9 vocab
+    tables, bf16), seq 2048: ``head_only`` on ``unembed*,ln_final*`` at
+    all 32 layers through ``repro_torch.launch.train.main`` (B1 on the
+    2-leaf bf16 group); then the full space through the trainer at the
+    depth ``_lm_plan`` admits, logged as a cut (B1 on the one bf16
+    group); launch counts exact, round times, memory against the plan;
+    B1 held to its plain version and timed on both trees."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    seq_len, rounds = 2048, 2
+    steps = 2 * 2
+    cfg = dataclasses.replace(get_config("minitron-4b"),
+                              loss_chunk_vocab=MINITRON_CHUNK)
+    elements, plan = _subset_plan("head_only minitron", cfg, seq_len,
+                                  "head_only", stack_grads=False)
+    reset_launches()
+    with _RoundLog("head_only minitron", steps * seq_len, plan) as rl:
+        tr = train.main(_train_argv("minitron-4b", seq_len, rounds,
+                                    MINITRON_CHUNK, "--update-space",
+                                    "head_only", "--lora-targets",
+                                    MINITRON_HEAD))
+    counts = launches()
+    if sorted(tr.x) != ["ln_final.scale", "unembed"] or any(
+            v.dtype != torch.bfloat16 for v in tr.x.values()):
+        raise AssertionError(f"head_only minitron: delta tree "
+                             f"{ {k: v.dtype for k, v in tr.x.items()} }")
+    _check_subset_rounds("head_only minitron", tr, rl.rows, "head_only",
+                         elements, 2)
+    n = _want_b1("head_only minitron", counts, tr.spec, 1, rounds)
+    result.setdefault("b1_paths", {})["head_only minitron-4b"] = n
+    result["b1"].setdefault("trees", {})["minitron head_only"] = (
+        _time_update_tree("scaffold_update at the minitron-4b head_only tree "
+                          "(the 0.79e9-element unembed)", tr.x, tr.c,
+                          tr.spec.eta_l))
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+    spec, rounds = _lm_spec(), 3
+    cut, _, _ = _lm_fit(spec, seq_len, arch="minitron-4b",
+                        chunk=MINITRON_CHUNK)
+    plan = _lm_plan(cut, seq_len, spec.local_batch)[2]
+    tr, counts, secs, peaks = _lm_rounds("minitron", cut, spec, seq_len,
+                                         rounds, plan)
+    groups = len(_b1_groups(tr))
+    n = _want_b1("minitron", counts, spec, groups, rounds)
+    _plan_vs_peak(f"minitron at {cut.num_layers} layers", plan, max(peaks))
+    log(f"minitron: rounds 2-{rounds} mean {statistics.mean(secs[1:]):.3f} "
+        f"s at {cut.num_layers} of {cfg.num_layers} layers")
+    if groups != 1 or n != 12 or "unembed" not in tr.x:
+        raise AssertionError(f"minitron: {groups} groups, B1 {n}")
+    result.setdefault("b1_paths", {})["minitron-4b"] = n
+    torch.cuda.empty_cache()
+    log(f"minitron: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"before B1 is timed on its tree")
+    result["b1"]["trees"][f"minitron {cut.num_layers} layers"] = (
+        _time_update_tree(f"scaffold_update at the minitron-4b tree "
+                          f"({cut.num_layers} layers, both vocab tables)",
+                          tr.x, tr.c, spec.eta_l))
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+
+def phase_paligemma_full(result):
+    """Phase 37: paligemma-3b at its published widths, all 18 layers in
+    bf16, 256 projected patches + 1792 text tokens (2048: the dense
+    prefix-LM path), SCAFFOLD through ``federated_round``: B1 on the one
+    bf16 group, no B5; round times and memory against the plan; B1 held
+    to its plain version and timed on the trained tree."""
+    from repro_torch.configs import get_config
+
+    spec, rounds = _lm_spec(), 3
+    cfg = dataclasses.replace(get_config("paligemma-3b"),
+                              loss_chunk_vocab=PALIGEMMA_CHUNK)
+    seq_len = 2048
+    text_len = seq_len - cfg.num_prefix_tokens
+    plan = _lm_plan(cfg, seq_len, spec.local_batch)[2]
+    log(f"paligemma: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}q/{cfg.num_kv_heads}kv x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_prefix_tokens} prefix "
+        f"+ {text_len} text tokens; plan {plan / 1e9:.2f} GB (limit "
+        f"{LM_MEMORY_LIMIT / 1e9:.0f} GB)")
+    if plan > LM_MEMORY_LIMIT:
+        raise AssertionError(f"paligemma: plan {plan / 1e9:.1f} GB")
+    counts, secs, peaks, losses = _fed_rounds("paligemma", cfg, spec,
+                                              text_len, rounds, plan, result)
+    n = _want_b1("paligemma", counts, spec, 1, rounds)
+    _plan_vs_peak("paligemma", plan, max(peaks))
+    log(f"paligemma: rounds 2-{rounds} mean {statistics.mean(secs[1:]):.3f}"
+        f" s; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    result.setdefault("b1_paths", {})["paligemma-3b"] = n
+
+
+def phase_gemma_long(result):
+    """Phase 38: gemma3-1b at its published widths and all 26 layers,
+    seq 4096: the 22 "W" layers through B5 (4096 = 8 windows), the 4 "F"
+    layers past 2048 tokens through ``flash_attention``; B1 on the one
+    bf16 group; launch counts exact, round times, memory against the
+    plan, a profiled round."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    seq_len, rounds = 4096, 3
+    spec = _lm_spec()
+    cfg, _, _ = _lm_fit(spec, seq_len, arch="gemma3-1b",
+                        chunk=get_config("gemma3-1b").vocab_size // 16)
+    if cfg.num_layers != get_config("gemma3-1b").num_layers:
+        raise AssertionError(f"gemma long: depth cut to {cfg.num_layers}")
+    plan = _lm_plan(cfg, seq_len, spec.local_batch)[2]
+    n_w = cfg.pattern_for_layers().count("W")
+    steps = spec.num_sampled * spec.local_steps
+    tr, counts, secs, peaks = _lm_rounds("gemma long", cfg, spec, seq_len,
+                                         rounds, plan)
+    n = _want_b1("gemma long", counts, spec, 1, rounds,
+                 b5=n_w * steps * rounds)
+    _plan_vs_peak("gemma long", plan, max(peaks))
+    log(f"gemma long: {n_w} W layers x S x K x rounds = "
+        f"{counts['swa_attention']} B5 launches, "
+        f"{cfg.pattern_for_layers().count('F')} F layers through "
+        f"flash_attention; rounds 2-{rounds} mean "
+        f"{statistics.mean(secs[1:]):.3f} s")
+    result.setdefault("b1_paths", {})["gemma3-1b seq 4096"] = n
+    result.setdefault("b5_paths", {})["gemma3-1b seq 4096"] = counts[
+        "swa_attention"]
+    _profile_round(tr, "gemma long", kernels=("swa_fwd_wgmma",
+                                              "scaffold_update"))
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+
+def phase_whisper_full(result):
+    """Phase 39: whisper-tiny at its published widths (4 + 4 layers,
+    d_model 384, fp32), 1500 frames and 448 text tokens, batch 4,
+    SCAFFOLD through ``federated_round``: B1 on the one fp32 group; round
+    times and memory against the plan; B1 held to its plain version and
+    timed on the trained tree."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FedRoundSpec
+
+    spec = FedRoundSpec(algorithm="scaffold", num_clients=4, num_sampled=2,
+                        local_steps=2, local_batch=4, eta_l=0.01,
+                        strategy="client_sequential")
+    cfg, text_len, rounds = get_config("whisper-tiny"), 448, 3
+    plan = _lm_plan(cfg, text_len, spec.local_batch)[2]
+    log(f"whisper: {cfg.num_layers} + {cfg.encoder.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff} (gelu), layer norm, vocab {cfg.vocab_size}, "
+        f"{cfg.encoder.num_frames} frames, {text_len} text tokens, batch "
+        f"{spec.local_batch}, fp32; plan {plan / 1e9:.2f} GB")
+    counts, secs, peaks, losses = _fed_rounds("whisper", cfg, spec, text_len,
+                                              rounds, plan, result)
+    n = _want_b1("whisper", counts, spec, 1, rounds)
+    _plan_vs_peak("whisper", plan, max(peaks))
+    log(f"whisper: rounds 2-{rounds} mean {statistics.mean(secs[1:]):.3f} s;"
+        f" loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    result.setdefault("b1_paths", {})["whisper-tiny"] = n
 
 
 def _phase(fn, *args):
@@ -4353,6 +4870,11 @@ def main() -> int:
     _phase(phase_ssm_small)
     _phase(phase_hymba_full, result)
     _phase(phase_mamba2_full, result)
+    _phase(phase_new_small, result)
+    _phase(phase_minitron_full, result)
+    _phase(phase_paligemma_full, result)
+    _phase(phase_gemma_long, result)
+    _phase(phase_whisper_full, result)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     # B1-B4 are bound by bytes and no one PyTorch call computes them
     for key in ("b1", "b2", "b3", "b4", "b5"):

@@ -1,24 +1,34 @@
 """Architecture registry of the port: ``get_config`` / ``get_reduced``.
 
-llama3.2-3b, gemma3-1b, mamba2-2.7b and hymba-1.5b are ported so far;
-the other architectures of the JAX package raise
-``NotImplementedError``.
+llama3.2-3b, gemma3-1b, mamba2-2.7b, hymba-1.5b, minitron-4b,
+paligemma-3b and whisper-tiny are ported; the JAX package's MLA and MoE
+architectures raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from repro_torch.configs import gemma3_1b, hymba_1_5b, llama3_2_3b, mamba2_2_7b
+from repro_torch.configs import (
+    gemma3_1b,
+    hymba_1_5b,
+    llama3_2_3b,
+    mamba2_2_7b,
+    minitron_4b,
+    paligemma_3b,
+    whisper_tiny,
+)
 from repro_torch.configs.base import (  # noqa: F401
+    EncoderConfig,
     FedRoundSpec,
     ModelConfig,
     SSMConfig,
 )
 
 _ARCHS = {"llama3.2-3b": llama3_2_3b, "gemma3-1b": gemma3_1b,
-          "mamba2-2.7b": mamba2_2_7b, "hymba-1.5b": hymba_1_5b}
+          "mamba2-2.7b": mamba2_2_7b, "hymba-1.5b": hymba_1_5b,
+          "minitron-4b": minitron_4b, "paligemma-3b": paligemma_3b,
+          "whisper-tiny": whisper_tiny}
 
-# the JAX package's other architectures, not ported yet
-_NOT_PORTED = ("minicpm3-4b", "whisper-tiny", "paligemma-3b",
-               "deepseek-v3-671b", "qwen2-moe-a2.7b", "minitron-4b")
+# the JAX package's other architectures, not ported yet (MLA, MoE)
+_NOT_PORTED = ("minicpm3-4b", "deepseek-v3-671b", "qwen2-moe-a2.7b")
 
 def _module(arch_id: str):
     if arch_id in _NOT_PORTED:

@@ -1,7 +1,7 @@
 """Config dataclasses for models and federated rounds.
 
 A copy of the JAX package's ``configs/base.py`` (``SSMConfig``,
-``ModelConfig`` and ``FedRoundSpec``), field for field, so that a spec
+``EncoderConfig``, ``ModelConfig`` and ``FedRoundSpec``), field for field, so that a spec
 means the same in both packages. ``FedRoundSpec`` validates its names against the port's live
 registries, as the reference does, so a name registered at run time
 (``repro_torch.core.register_algorithm``, ``register_compressor``, ...)
@@ -31,13 +31,23 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder tower of an encoder-decoder model (whisper; the JAX
+    package's ``EncoderConfig``)."""
+
+    num_layers: int
+    num_frames: int  # the stub conv frontend's output length (whisper: 1500)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Model hyper-parameters (the JAX package's ``ModelConfig``).
 
-    ``ssm`` holds an :class:`SSMConfig` (the ``"M"`` and ``"Y"`` layers);
-    ``mla``, ``moe`` and ``encoder`` hold the JAX package's other
-    sub-configs, whose models are not ported yet: the port's model
-    raises when one is set.
+    ``ssm`` holds an :class:`SSMConfig` (the ``"M"`` and ``"Y"`` layers),
+    ``encoder`` an :class:`EncoderConfig` (whisper's encoder tower and
+    its decoder's cross-attention); ``mla`` and ``moe`` hold the JAX
+    package's other sub-configs, whose models are not ported yet: the
+    port's model raises when one is set.
     """
 
     name: str

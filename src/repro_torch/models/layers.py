@@ -1,13 +1,14 @@
-"""Model layers of the llama, gemma3, mamba2 and hymba families (the JAX
-package's ``models/layers.py``, their subset): init helpers, RMSNorm,
-RoPE, dense causal and sliding-window GQA attention, the banded local
-attention of ``"W"`` layers, the silu- and gelu-gated MLPs, and the
-Mamba2 SSD block of ``"M"`` and ``"Y"`` layers.
+"""Model layers of the ported families (the JAX package's
+``models/layers.py``, their subset): init helpers, RMSNorm and layer
+norm, RoPE, dense GQA attention under the causal, sliding, prefix and
+full masks, the blocked online-softmax attention of long ``"F"``
+sequences, the banded local attention of ``"W"`` layers, the silu- and
+gelu-gated MLPs and the plain gelu MLP, and the Mamba2 SSD block of
+``"M"`` and ``"Y"`` layers.
 
 Conventions as in the reference: activations (B, S, E); q/k/v
 (B, S, H, D); parameters are dicts of tensors. The other layers of the
-reference (layer norm, flash and MLA attention, MoE, Mamba2 decode) are
-not ported yet and raise ``NotImplementedError``.
+reference (MLA attention, MoE, decode) are not ported yet.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.swa_attention.ops import swa_attention
 
@@ -52,17 +54,29 @@ def rms_norm(x, weight, eps: float = 1e-6):
     return out.to(dt)
 
 
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """Layer norm, in fp32 (the reference's ``layer_norm``)."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    return out.to(dt)
+
+
 def apply_norm(cfg, x, p):
-    """The config's norm (RMSNorm) of x with parameters ``p``."""
-    if cfg.norm_kind != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm_kind!r}: not ported yet")
+    """The config's norm of x with parameters ``p``."""
+    if cfg.norm_kind == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
     return rms_norm(x, p["scale"])
 
 
 def init_norm(cfg, dim, dtype, device):
-    """RMSNorm parameters: the scale is stored as (w - 1), zeros."""
-    if cfg.norm_kind != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm_kind!r}: not ported yet")
+    """Norm parameters: layer norm's scale is ones and its bias zeros;
+    RMSNorm stores its scale as (w - 1), zeros."""
+    if cfg.norm_kind == "layernorm":
+        return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+                "bias": torch.zeros((dim,), dtype=dtype, device=device)}
     return {"scale": torch.zeros((dim,), dtype=dtype, device=device)}
 
 
@@ -104,14 +118,32 @@ def _repeat_kv(k, n_rep: int):
         b, s, h * n_rep, d)
 
 
-def dense_attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
-                    scale: Optional[float] = None):
+def _mask(mask_kind: str, q_pos, k_pos, prefix_len: int = 0,
+            window: int = 0):
+    """The (Sq, Skv) boolean mask of ``mask_kind`` (None for "full"):
+    "causal" keeps k not in q's future, "sliding" also ``q_pos - k_pos <
+    window``, "prefix" is bidirectional over ``k_pos < prefix_len`` and
+    causal after it."""
+    rel = q_pos[:, None] - k_pos[None, :]  # >= 0: k not in the future
+    if mask_kind == "causal":
+        return rel >= 0
+    if mask_kind == "sliding":
+        return (rel >= 0) & (rel < window)
+    if mask_kind == "prefix":
+        return (rel >= 0) | (k_pos[None, :] < prefix_len)
+    if mask_kind == "full":
+        return None
+    raise ValueError(mask_kind)
+
+
+def dense_attention(q, k, v, *, mask_kind: str = "causal", prefix_len: int = 0,
+                    window: int = 0, scale: Optional[float] = None):
     """Reference (non-chunked) attention as plain tensor code.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D). mask_kind in {"causal",
-    "sliding", "full"}; "sliding" keeps ``0 <= q_pos - k_pos < window``.
-    q positions are [Skv-Sq, Skv). Scores are taken in fp32 (the
-    reference's ``preferred_element_type``), the softmax is fp32 and its
+    "sliding", "prefix", "full"} (``_mask``). q positions are [Skv-Sq,
+    Skv). Scores are taken in fp32 (the reference's
+    ``preferred_element_type``), the softmax is fp32 and its
     probabilities are cast to v's dtype for the second product.
     """
     b, sq, hq, d = q.shape
@@ -123,20 +155,80 @@ def dense_attention(q, k, v, *, mask_kind: str = "causal", window: int = 0,
     scores = scores * scale
     q_pos = torch.arange(sq, device=q.device) + (skv - sq)
     k_pos = torch.arange(skv, device=q.device)
-    rel = q_pos[:, None] - k_pos[None, :]  # >= 0: k not in the future
-    if mask_kind == "causal":
-        mask = rel >= 0
-    elif mask_kind == "sliding":
-        mask = (rel >= 0) & (rel < window)
-    elif mask_kind == "full":
-        mask = None
-    else:
-        raise NotImplementedError(f"mask {mask_kind!r}: not ported yet")
+    mask = _mask(mask_kind, q_pos, k_pos, prefix_len, window)
     if mask is not None:
         scores = torch.where(mask[None, None], scores,
                              torch.full((), NEG_INF, device=q.device))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# an "F" layer longer than this many tokens takes ``flash_attention``, over
+# kv blocks of ``FLASH_BLOCK_KV`` (the reference's defaults)
+FLASH_THRESHOLD = 2048
+FLASH_BLOCK_KV = 1024
+
+
+def _flash_block(q32, kblk, vblk, o, m, l, mask):
+    """One kv block of the online softmax: the scores of fp32 q (scaled)
+    against the block, masked, folded into the carry ``(o, m, l)``. GQA
+    groups q's heads by their kv head (head h reads kv head h // n_rep,
+    as ``_repeat_kv``) instead of repeating k and v."""
+    b, sq, hq, d = q32.shape
+    hkv = kblk.shape[2]
+    qg = q32.reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kblk.float()).reshape(
+        b, hq, sq, kblk.shape[1])  # (B, H, Sq, block)
+    if mask is not None:
+        s = torch.where(mask[None, None], s,
+                        torch.full((), NEG_INF, device=s.device))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bgrqk,bkgd->bgrqd",
+                      p.reshape(b, hkv, hq // hkv, sq, -1), vblk.float())
+    o_new = o * alpha[..., None] + pv.reshape(b, hq, sq, -1)
+    return o_new, m_new, l_new
+
+
+def flash_attention(q, k, v, *, mask_kind: str = "causal", prefix_len: int = 0,
+                    block_kv: int = FLASH_BLOCK_KV,
+                    scale: Optional[float] = None):
+    """Online-softmax attention over kv blocks of ``block_kv`` (the
+    reference's ``flash_attention_jnp``): never builds the (Sq, Skv)
+    scores. Semantics of ``dense_attention`` for mask_kind in {"causal",
+    "prefix", "full"}; a Skv that is not a multiple of the block takes
+    ``dense_attention``, as the reference does.
+
+    q is cast to fp32 and scaled before the product, the carry and p @ v
+    are fp32, and the output ``o / max(l, 1e-30)`` is cast to q's dtype
+    once. Each block is recomputed in the backward pass
+    (``torch.utils.checkpoint``, the reference's remat of its scan body),
+    so the backward holds one block's scores at a time; without autograd
+    the checkpoint just runs the block."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    if skv % block_kv != 0:
+        return dense_attention(q, k, v, mask_kind=mask_kind,
+                               prefix_len=prefix_len, scale=scale)
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    dev = q.device
+    q32 = q.float() * scale
+    q_pos = torch.arange(sq, device=dev) + (skv - sq)
+    o = torch.zeros((b, hq, sq, v.shape[-1]), dtype=torch.float32,
+                    device=dev)
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=dev)
+    for lo in range(0, skv, block_kv):
+        k_pos = torch.arange(lo, lo + block_kv, device=dev)
+        mask = _mask(mask_kind, q_pos, k_pos, prefix_len)
+        # the block draws no random numbers: no RNG state to keep
+        o, m, l = checkpoint(_flash_block, q32, k[:, lo:lo + block_kv],
+                             v[:, lo:lo + block_kv], o, m, l, mask,
+                             use_reentrant=False, preserve_rng_state=False)
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)  # (B, Sq, H, D)
 
 
 def local_attention(q, k, v, *, window: int, scale: Optional[float] = None):
@@ -195,22 +287,17 @@ def init_attention(cfg, gen, dtype, device):
     }
 
 
-def attention_block(cfg, p, x, positions, *, kind: str,
-                    use_flash_threshold: int = 2048):
-    """Causal self-attention over the full sequence (train / prefill):
-    full causal for ``"F"`` layers, sliding-window for ``"W"`` layers,
-    routed as the reference routes them. A ``"W"`` layer whose sequence
-    is a multiple of the window and at least two windows long runs the
-    sliding-window kernel (B5, ``kernels.swa_attention``) in its forward
-    pass; a shorter or ragged one takes dense sliding attention."""
+def attention_block(cfg, p, x, positions, *, kind: str, prefix_len: int = 0,
+                    use_flash_threshold: int = FLASH_THRESHOLD):
+    """Self-attention over the full sequence (train / prefill), routed as
+    the reference routes it. A ``"W"`` layer whose sequence is a multiple
+    of the window and at least two windows long runs the sliding-window
+    kernel (B5, ``kernels.swa_attention``) in its forward pass; a shorter
+    or ragged one takes dense sliding attention. Any other layer is
+    causal, or a prefix LM's mask when ``prefix_len`` > 0: dense up to
+    ``use_flash_threshold`` tokens, ``flash_attention`` beyond."""
     b, s, e = x.shape
     h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if kind not in ("F", "W"):
-        raise NotImplementedError(f"attention kind {kind!r}: not ported yet")
-    if kind == "F" and s > use_flash_threshold:
-        raise NotImplementedError(
-            f"sequence length {s} > {use_flash_threshold} takes the "
-            f"reference's flash_attention_jnp path: not ported yet")
     q = (x @ p["wq"]).reshape(b, s, h, d)
     k = (x @ p["wk"]).reshape(b, s, hkv, d)
     v = (x @ p["wv"]).reshape(b, s, hkv, d)
@@ -226,7 +313,10 @@ def attention_block(cfg, p, x, positions, *, kind: str,
         else:
             out = dense_attention(q, k, v, mask_kind="sliding", window=w)
     else:
-        out = dense_attention(q, k, v, mask_kind="causal")
+        mask_kind = "prefix" if prefix_len else "causal"
+        attend = flash_attention if s > use_flash_threshold else \
+            dense_attention
+        out = attend(q, k, v, mask_kind=mask_kind, prefix_len=prefix_len)
     return out.reshape(b, s, h * d) @ p["wo"]
 
 
@@ -235,14 +325,13 @@ def attention_block(cfg, p, x, positions, *, kind: str,
 # ---------------------------------------------------------------------------
 
 
-_MLP_KINDS = ("silu_gated", "gelu_gated")
-
-
 def init_mlp(cfg, gen, dtype, device):
-    """Gated MLP weights w_gate, w_up, w_down (silu- or gelu-gated)."""
-    if cfg.mlp_kind not in _MLP_KINDS:
-        raise NotImplementedError(f"mlp {cfg.mlp_kind!r}: not ported yet")
+    """MLP weights: w_up, w_down for the plain ``"gelu"`` MLP; w_gate,
+    w_up, w_down for the silu- and gelu-gated ones."""
     e, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_kind == "gelu":
+        return {"w_up": dense_init(gen, (e, f), dtype, device),
+                "w_down": dense_init(gen, (f, e), dtype, device)}
     return {
         "w_gate": dense_init(gen, (e, f), dtype, device),
         "w_up": dense_init(gen, (e, f), dtype, device),
@@ -251,11 +340,12 @@ def init_mlp(cfg, gen, dtype, device):
 
 
 def mlp_block(cfg, p, x):
-    """(act(x W_gate) * x W_up) W_down, act silu or gelu. The gelu is the
-    tanh approximation, ``jax.nn.gelu``'s default (torch's default is the
+    """gelu(x W_up) W_down for ``"gelu"``; (act(x W_gate) * x W_up)
+    W_down, act silu or gelu, for the gated kinds. The gelu is the tanh
+    approximation, ``jax.nn.gelu``'s default (torch's default is the
     exact erf form)."""
-    if cfg.mlp_kind not in _MLP_KINDS:
-        raise NotImplementedError(f"mlp {cfg.mlp_kind!r}: not ported yet")
+    if cfg.mlp_kind == "gelu":
+        return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
     gate = x @ p["w_gate"]
     act = (F.silu(gate) if cfg.mlp_kind == "silu_gated"
            else F.gelu(gate, approximate="tanh"))

@@ -2,9 +2,15 @@
 forward and the next-token loss that the federated core consumes.
 
 Parameters are a flat ``dict[str, Tensor]`` keyed by the reference's
-pytree paths (``embed``, ``ln_final/scale``, ``layers/0/attn/wq``, ...),
-so ``repro_torch.convert.params_from_jax`` carries the JAX package's
+pytree paths (``embed``, ``ln_final/scale``, ``layers/0/attn/wq``,
+``unembed``, ``prefix_proj``, ``encoder/layers/attn/wq``, ...), so
+``repro_torch.convert.params_from_jax`` carries the JAX package's
 weights across leaf by leaf.
+
+A batch is ``{"tokens", "labels"}`` of (B, S_text), plus the stub
+frontends' embeddings (B, P, E) where the model has one: ``patches``
+for a prefix LM (paligemma), ``frames`` for an encoder-decoder
+(whisper).
 """
 from __future__ import annotations
 
@@ -27,14 +33,9 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg) -> None:
-    if (cfg.mla is not None or cfg.moe is not None
-            or cfg.encoder is not None or cfg.num_prefix_tokens):
+    if cfg.mla is not None or cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: MLA / MoE / encoder / prefix models are not "
-            f"ported yet")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: untied embeddings are not "
-                                  f"ported yet")
+            f"{cfg.name}: MLA / MoE models are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -51,12 +52,27 @@ def init_params(cfg, gen=None, device="cuda") -> Dict[str, torch.Tensor]:
     dev = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=dev).manual_seed(0)
+    return param_tree(cfg, gen, dev)
+
+
+def param_tree(cfg, gen, dev: torch.device) -> Dict[str, torch.Tensor]:
+    """The parameter tree of ``cfg`` on ``dev``, drawn from ``gen``. On
+    the meta device (``gen`` None) it allocates nothing: the leaf paths,
+    shapes and dtypes alone."""
     dtype = _dtype(cfg.param_dtype)
-    params = {
-        "embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype, dev),
-        "ln_final/scale": L.init_norm(cfg, cfg.d_model, dtype, dev)["scale"],
-    }
+    e = cfg.d_model
+    params = {"embed": L.embed_init(gen, (cfg.vocab_size, e), dtype, dev)}
+    for k, v in L.init_norm(cfg, e, dtype, dev).items():
+        params[f"ln_final/{k}"] = v
     params.update(T.init_stack(cfg, gen, dtype, dev))
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.dense_init(gen, (e, cfg.vocab_size), dtype, dev)
+    if cfg.encoder is not None:
+        for k, v in T.init_encoder(cfg, gen, dtype, dev).items():
+            params[f"encoder/{k}"] = v
+    if cfg.num_prefix_tokens:
+        # the projector stub of the modality prefix
+        params["prefix_proj"] = L.dense_init(gen, (e, e), dtype, dev)
     return params
 
 
@@ -75,13 +91,24 @@ def count_params_analytic(cfg) -> int:
     _check_supported(cfg)
     e, h, hkv, d, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                        cfg.head_dim, cfg.d_ff)
-    dense = 2 * e + e * h * d + 2 * e * hkv * d + h * d * e + 3 * e * f
-    per_kind = {"F": dense, "W": dense}
+    norm = 2 * e if cfg.norm_kind == "layernorm" else e  # + the bias
+    attn = e * h * d + 2 * e * hkv * d + h * d * e
+    mlp = (2 if cfg.mlp_kind == "gelu" else 3) * e * f
+    dense = 2 * norm + attn + mlp
+    cross = norm + attn if cfg.encoder is not None else 0
+    per_kind = {"F": dense + cross, "W": dense + cross}
     if cfg.ssm is not None:
-        per_kind["M"] = e + _mamba_params(cfg)  # ln_attn + mamba
-        per_kind["Y"] = dense + e + _mamba_params(cfg)  # + ln_mamba
-    layers = sum(per_kind[k] for k in cfg.pattern_for_layers())
-    return cfg.vocab_size * e + e + layers
+        per_kind["M"] = norm + _mamba_params(cfg) + cross  # ln_attn + mamba
+        per_kind["Y"] = dense + norm + _mamba_params(cfg) + cross
+    total = cfg.vocab_size * e + norm + sum(
+        per_kind[k] for k in cfg.pattern_for_layers())
+    if not cfg.tie_embeddings:
+        total += e * cfg.vocab_size  # unembed
+    if cfg.encoder is not None:
+        total += cfg.encoder.num_layers * dense + norm  # + ln_post
+    if cfg.num_prefix_tokens:
+        total += e * e  # prefix_proj
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -100,21 +127,40 @@ def _embed(cfg, params, tokens):
 
 
 def _unembed(cfg, params, x):
-    logits = x @ params["embed"].T.to(x.dtype)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T.to(x.dtype)
+    else:
+        logits = x @ params["unembed"]
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
 
 
 def forward_hidden(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward up to the final norm -> (hidden (B,S,E), aux)."""
+    """Full-sequence forward up to the final norm -> (hidden (B,S,E), aux).
+    An encoder-decoder runs ``frames`` through its encoder first; a
+    prefix LM prepends ``patches @ prefix_proj`` to the text and drops
+    the prefix's positions after the final norm, so the hidden states
+    are the text's."""
     _check_supported(cfg)
     tokens = batch["tokens"]
     x = _embed(cfg, params, tokens)
+    enc_out = None
+    prefix_len = 0
+    if cfg.encoder is not None:
+        enc_out = T.apply_encoder(cfg, T.sub(params, "encoder"),
+                                  batch["frames"].to(x.dtype))
+    if cfg.num_prefix_tokens:
+        pre = batch["patches"].to(x.dtype) @ params["prefix_proj"]
+        x = torch.cat([pre, x], dim=1)
+        prefix_len = cfg.num_prefix_tokens
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    x, aux = T.apply_stack(cfg, params, x, positions)
+    x, aux = T.apply_stack(cfg, params, x, positions, prefix_len=prefix_len,
+                           enc_out=enc_out)
     x = L.apply_norm(cfg, x, T.sub(params, "ln_final"))
+    if cfg.num_prefix_tokens:
+        x = x[:, cfg.num_prefix_tokens:]
     return x, aux
 
 
@@ -155,7 +201,13 @@ def _chunked_ce(cfg, params, hidden, labels, mask):
     m = torch.full((b, s), -1e30, dtype=torch.float32, device=hidden.device)
     acc = torch.zeros((b, s), dtype=torch.float32, device=hidden.device)
     gold = torch.zeros((b, s), dtype=torch.float32, device=hidden.device)
-    for ci, w_chunk in enumerate(params["embed"].split(chunk, dim=0)):
+    if cfg.tie_embeddings:
+        chunks = params["embed"].split(chunk, dim=0)
+    else:
+        # column blocks of unembed, each read as (C, E): its gradient is
+        # their concatenation, contiguous as the fused steps need it
+        chunks = [u.T for u in params["unembed"].split(chunk, dim=1)]
+    for ci, w_chunk in enumerate(chunks):
         m, acc, gold = checkpoint(_ce_chunk, hidden, w_chunk, labels, m, acc,
                                   gold, ci * chunk, cfg.logit_softcap,
                                   use_reentrant=False)

@@ -5,10 +5,12 @@ on a leading layer axis, exactly the reference's leaf layout
 its own dtype (a bf16 model keeps the SSD's ``a_log``, ``dt_bias`` and
 ``d_skip`` in fp32, as the reference does).
 
-The ``"F"`` (full causal attention + dense MLP), ``"W"``
+The ``"F"`` (full causal or prefix-LM attention + dense MLP), ``"W"``
 (sliding-window attention + dense MLP), ``"M"`` (Mamba2 SSD) and ``"Y"``
 (attention and Mamba2 in parallel on one norm, + dense MLP) layers are
-ported; MoE and cross-attention layers raise ``NotImplementedError``.
+ported, and so are the cross-attention of an encoder-decoder's decoder
+layers and the encoder tower (whisper); MoE layers raise
+``NotImplementedError``.
 The reference rematerialises each layer in the backward pass
 (``cfg.remat``); the port keeps the activations (a ``"W"`` layer's
 attention keeps only its q, k and v and recomputes the rest in the
@@ -31,7 +33,7 @@ class LayerGroup:
     kind: str  # F | W | M | Y
     uses_moe: bool
     count: int
-    has_cross: bool = False
+    has_cross: bool = False  # whisper's decoder layers
 
 
 def layer_groups(cfg) -> List[LayerGroup]:
@@ -49,7 +51,7 @@ def layer_groups(cfg) -> List[LayerGroup]:
         else:
             groups.append(LayerGroup(sig[0], sig[1], 1, sig[2]))
     for g in groups:
-        if g.kind not in ("F", "W", "M", "Y") or g.uses_moe or g.has_cross:
+        if g.kind not in ("F", "W", "M", "Y") or g.uses_moe:
             raise NotImplementedError(
                 f"layer group {g}: not ported yet (only dense 'F', 'W', "
                 f"'M' and 'Y' layers are)")
@@ -62,16 +64,18 @@ def sub(p: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
     return {k[n:]: v for k, v in p.items() if k.startswith(prefix + "/")}
 
 
-def _init_layer(cfg, gen, kind: str, dtype, device) -> Dict[str, torch.Tensor]:
+def _init_layer(cfg, gen, kind: str, dtype, device,
+                has_cross: bool = False) -> Dict[str, torch.Tensor]:
     """One layer's leaves, the reference's per kind: ``"F"``/``"W"``
     ln_attn, attn, ln_mlp, mlp; ``"Y"`` those and ln_mamba, mamba (the
     forward reads ln_attn for both branches: ln_mamba stays unread, as
-    in the reference); ``"M"`` ln_attn, mamba."""
+    in the reference); ``"M"`` ln_attn, mamba; a decoder layer of an
+    encoder-decoder also ln_cross, cross."""
     p: Dict[str, torch.Tensor] = {}
 
     def norm(name):
-        p[f"{name}/scale"] = L.init_norm(cfg, cfg.d_model, dtype,
-                                         device)["scale"]
+        for k, v in L.init_norm(cfg, cfg.d_model, dtype, device).items():
+            p[f"{name}/{k}"] = v
 
     if kind in ("F", "W", "Y"):
         norm("ln_attn")
@@ -84,27 +88,56 @@ def _init_layer(cfg, gen, kind: str, dtype, device) -> Dict[str, torch.Tensor]:
         norm("ln_mamba" if kind == "Y" else "ln_attn")
         for k, v in L.init_mamba(cfg, gen, dtype, device).items():
             p[f"mamba/{k}"] = v
+    if has_cross:
+        norm("ln_cross")
+        for k, v in L.init_attention(cfg, gen, dtype, device).items():
+            p[f"cross/{k}"] = v
     return p
 
 
-def init_stack(cfg, gen, dtype, device) -> Dict[str, torch.Tensor]:
-    """Per-group stacked layer params, keyed ``layers/<g>/<leaf path>``;
+def _init_stacked(cfg, gen, kind: str, count: int, prefix: str, dtype,
+                  device, has_cross: bool = False) -> Dict[str, torch.Tensor]:
+    """``count`` layers of ``kind`` stacked, keyed ``<prefix><leaf path>``;
     drawn one layer at a time into the stacked tensors, each in its
     leaf's own dtype."""
     out: Dict[str, torch.Tensor] = {}
-    for gi, g in enumerate(layer_groups(cfg)):
-        for i in range(g.count):
-            for k, v in _init_layer(cfg, gen, g.kind, dtype, device).items():
-                key = f"layers/{gi}/{k}"
-                if i == 0:
-                    out[key] = torch.empty((g.count,) + tuple(v.shape),
-                                           dtype=v.dtype, device=device)
-                out[key][i].copy_(v)
+    for i in range(count):
+        for k, v in _init_layer(cfg, gen, kind, dtype, device,
+                                has_cross).items():
+            key = prefix + k
+            if i == 0:
+                out[key] = torch.empty((count,) + tuple(v.shape),
+                                       dtype=v.dtype, device=device)
+            out[key][i].copy_(v)
     return out
 
 
-def _apply_layer(cfg, p, x, positions, kind: str):
-    """Full-sequence forward of one dense layer of ``kind``."""
+def init_stack(cfg, gen, dtype, device) -> Dict[str, torch.Tensor]:
+    """Per-group stacked layer params, keyed ``layers/<g>/<leaf path>``."""
+    out: Dict[str, torch.Tensor] = {}
+    for gi, g in enumerate(layer_groups(cfg)):
+        out.update(_init_stacked(cfg, gen, g.kind, g.count, f"layers/{gi}/",
+                                 dtype, device, g.has_cross))
+    return out
+
+
+def _cross_attention(cfg, p, x, enc_out):
+    """Cross-attention: queries from the decoder's x, keys and values from
+    the encoder's output, no RoPE, the "full" mask."""
+    b, s, e = x.shape
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    se = enc_out.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, h, d)
+    k = (enc_out @ p["wk"]).reshape(b, se, hkv, d)
+    v = (enc_out @ p["wv"]).reshape(b, se, hkv, d)
+    out = L.dense_attention(q, k, v, mask_kind="full")
+    return out.reshape(b, s, h * d) @ p["wo"]
+
+
+def _apply_layer(cfg, p, x, positions, kind: str, *, prefix_len: int = 0,
+                 enc_out=None):
+    """Full-sequence forward of one dense layer of ``kind``; a decoder
+    layer attends to ``enc_out`` after its self-attention."""
     h_in = L.apply_norm(cfg, x, sub(p, "ln_attn"))
     if kind == "M":
         return x + L.mamba_block(cfg, sub(p, "mamba"), h_in)
@@ -112,28 +145,78 @@ def _apply_layer(cfg, p, x, positions, kind: str):
     if kind == "Y":
         attn_kind = "W" if cfg.sliding_window else "F"
     attn_out = L.attention_block(cfg, sub(p, "attn"), h_in, positions,
-                                 kind=attn_kind)
+                                 kind=attn_kind, prefix_len=prefix_len)
     if kind == "Y":
         # Hymba: attention and mamba heads in parallel on the same input
         mamba_out = L.mamba_block(cfg, sub(p, "mamba"), h_in)
         x = x + 0.5 * (attn_out + mamba_out)
     else:
         x = x + attn_out
+        if enc_out is not None:
+            hc = L.apply_norm(cfg, x, sub(p, "ln_cross"))
+            x = x + _cross_attention(cfg, sub(p, "cross"), hc, enc_out)
     h2 = L.apply_norm(cfg, x, sub(p, "ln_mlp"))
     return x + L.mlp_block(cfg, sub(p, "mlp"), h2)
 
 
-def apply_stack(cfg, params, x, positions):
+def _layers(p, prefix: str):
+    """The stacked leaves under ``prefix``, each split into its layers
+    (``torch.unbind``), as one dict a layer."""
+    stack = {k: torch.unbind(v) for k, v in sub(p, prefix).items()}
+    count = len(next(iter(stack.values())))
+    return [{k: v[i] for k, v in stack.items()} for i in range(count)]
+
+
+def apply_stack(cfg, params, x, positions, *, prefix_len: int = 0,
+                enc_out=None):
     """Forward through all layer groups; returns (x, moe_aux = 0).
+    ``prefix_len`` > 0 gives the ``"F"`` layers a prefix LM's mask;
+    ``enc_out`` is the encoder's output that decoder layers attend to.
 
     Each stacked leaf is split into its layers once a forward
     (``torch.unbind``), whose backward stacks the layers' gradients once.
     Indexing ``v[i]`` a layer would fill and add a zero tensor of the
     whole stacked leaf per layer in the backward: O(L^2) bytes."""
     for gi, g in enumerate(layer_groups(cfg)):
-        stack = {k: torch.unbind(v) for k, v in
-                 sub(params, f"layers/{gi}").items()}
-        for i in range(g.count):
-            x = _apply_layer(cfg, {k: v[i] for k, v in stack.items()}, x,
-                             positions, g.kind)
+        for p in _layers(params, f"layers/{gi}"):
+            x = _apply_layer(cfg, p, x, positions, g.kind,
+                             prefix_len=prefix_len, enc_out=enc_out)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# encoder tower (whisper)
+# ---------------------------------------------------------------------------
+
+
+def init_encoder(cfg, gen, dtype, device) -> Dict[str, torch.Tensor]:
+    """The encoder's leaves, keyed as the reference's pytree under
+    ``encoder``: ``layers/<leaf path>`` stacked over its layers (ln_attn,
+    attn, ln_mlp, mlp, as an ``"F"`` layer) and ``ln_post``."""
+    out = _init_stacked(cfg, gen, "F", cfg.encoder.num_layers, "layers/",
+                        dtype, device)
+    for k, v in L.init_norm(cfg, cfg.d_model, dtype, device).items():
+        out[f"ln_post/{k}"] = v
+    return out
+
+
+def apply_encoder(cfg, p, frames):
+    """frames (B, T, E), the stub conv frontend's embeddings -> (B, T, E):
+    RoPE over the frames, bidirectional ("full") self-attention and the
+    MLP in each layer, then ``ln_post``."""
+    b, t, e = frames.shape
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    positions = torch.arange(t, device=frames.device)[None].expand(b, t)
+    x = frames
+    for pl in _layers(p, "layers"):
+        h_in = L.apply_norm(cfg, x, sub(pl, "ln_attn"))
+        q = (h_in @ pl["attn/wq"]).reshape(b, t, h, d)
+        k = (h_in @ pl["attn/wk"]).reshape(b, t, hkv, d)
+        v = (h_in @ pl["attn/wv"]).reshape(b, t, hkv, d)
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+        out = L.dense_attention(q, k, v, mask_kind="full")
+        x = x + out.reshape(b, t, h * d) @ pl["attn/wo"]
+        h2 = L.apply_norm(cfg, x, sub(pl, "ln_mlp"))
+        x = x + L.mlp_block(cfg, sub(pl, "mlp"), h2)
+    return L.apply_norm(cfg, x, sub(p, "ln_post"))

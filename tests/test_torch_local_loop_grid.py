@@ -7,9 +7,10 @@ row slab ``Am[I, :]`` and ``(Am^T y)_I`` from its column slab
 ``Am[:, I]``, updates y_I (and the slot m_I), and writes the partial
 loss ``0.5 y_I.u_I + bm_I.y_I``; the loss of a step is the sum of the
 partials in block order. ``grid_emulation`` below repeats that
-arithmetic in float32 torch, block by block, and is held to the port's
-plain version (rtol 1e-6: the same fp32 sums cut at other places) and to
-the JAX package's Pallas loop in interpret mode (rtol 1e-5, as
+arithmetic in float32 torch, all blocks side by side, and is held to
+the port's plain version (rtol 1e-6: the same fp32 sums cut at other
+places) and to the JAX package's Pallas loop in interpret mode (rtol
+1e-5, as
 ``tests/test_torch_megakernel.py``). y_K and m_K are held relative to
 their largest entry; a loss relative to the size of its two terms,
 ``|0.5 y.Am y| + |bm.y|``, of which it is the difference (at d 1000 a
@@ -24,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from repro.kernels.scaffold_update import megakernel as jmk
 from repro_torch.data import make_similarity_quadratics
@@ -34,13 +36,36 @@ H100_SMS = 132
 OLD_LIMITS = {"B3": 13_496, "B4": 10_796}  # widest d of the one-block kernel
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch intra-op thread and one BLAS thread for numpy: the
+    emulation is small, and under the suite's parallel workers numpy's
+    linear algebra (``make_similarity_quadratics`` at d 1024) on every
+    core oversubscribes them many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def grid_emulation(y, corr, eta, A, b, G, *, m=None, beta=0.0, terms=None):
-    """The grid kernel's arithmetic in float32, block by block, for a card
-    of ``G`` SMs. Returns ``(y_K, m_K | None, losses)``; appends each
-    step's ``|0.5 y.Am y| + |bm.y|`` to the list ``terms`` if given."""
+    """The grid kernel's arithmetic in float32 for a card of ``G`` SMs,
+    its blocks side by side: block j owns entries [j R, (j + 1) R) (the
+    last block the rest, zero-padded here: a zero adds nothing to a
+    sum). Each step takes every block's slab products, its partial loss
+    ``0.5 y_I.u_I + bm_I.y_I`` summed over its own entries, and the
+    step's loss as the fp32 sum of the partials in block order. Returns
+    ``(y_K, m_K | None, losses)``; appends each step's ``|0.5 y.Am y| +
+    |bm.y|`` to the list ``terms`` if given."""
     d, K = y.shape[0], A.shape[0]
     grid, R = mk.grid_shape(d, G)
-    owned = [(i0, min(d, i0 + R)) for i0 in range(0, grid * R, R)]
+
+    def blocks(t):  # (d,) -> (grid, R)
+        return torch.nn.functional.pad(t, (0, grid * R - d)).view(grid, R)
+
     Am = A.float().mean(dim=1)
     bm = b.float().mean(dim=1)
     c32 = torch.zeros(d) if corr is None else corr.float()
@@ -48,25 +73,21 @@ def grid_emulation(y, corr, eta, A, b, G, *, m=None, beta=0.0, terms=None):
     y32 = y.float()
     losses = []
     for k in range(K):
-        y_next = torch.empty(d)
-        loss = torch.zeros(())
-        quad = lin = 0.0
-        for lo, hi in owned:
-            u = Am[k, lo:hi, :] @ y32        # row slab
-            v = Am[k, :, lo:hi].T @ y32      # column slab, transposed
-            yi, bi = y32[lo:hi], bm[k, lo:hi]
-            q, li = 0.5 * torch.dot(u, yi), torch.dot(bi, yi)
-            loss = loss + (q + li)
-            quad, lin = quad + float(q), lin + float(li)
-            g = 0.5 * (u + v) + bi + c32[lo:hi]
-            if mm is not None:
-                mm[lo:hi] = beta * mm[lo:hi] + g
-                g = mm[lo:hi]
-            y_next[lo:hi] = (yi - eta[k] * g).to(y.dtype).float()
-        losses.append(loss)
+        u = Am[k] @ y32        # the row slabs, all blocks at once
+        v = Am[k].T @ y32      # the column slabs, transposed
+        yb = blocks(y32)
+        q = 0.5 * (blocks(u) * yb).sum(dim=1)
+        li = (blocks(bm[k]) * yb).sum(dim=1)
+        # the partials summed one after another in fp32, in block order
+        part = (q + li).numpy()
+        losses.append(torch.tensor(np.add.accumulate(part)[-1]))
         if terms is not None:
-            terms.append(abs(quad) + abs(lin))
-        y32 = y_next
+            terms.append(abs(sum(q.tolist())) + abs(sum(li.tolist())))
+        g = 0.5 * (u + v) + bm[k] + c32
+        if mm is not None:
+            mm = beta * mm + g
+            g = mm
+        y32 = (y32 - eta[k] * g).to(y.dtype).float()
     return y32.to(y.dtype), mm, torch.stack(losses)
 
 

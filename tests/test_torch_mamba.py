@@ -50,7 +50,6 @@ from repro_torch.core.controller import make_grad_fn
 from repro_torch.data import SyntheticLMFederated
 from repro_torch.models import layers as L
 from repro_torch.models import model as TM
-from repro_torch.models import transformer as T
 
 ARCH = "mamba2-2.7b"
 
@@ -187,14 +186,7 @@ def test_loss_and_grads_match_jax(weights):
 def meta_tree(cfg):
     """The port's parameter tree of ``cfg`` on the meta device: paths,
     shapes and dtypes, nothing allocated."""
-    dtype = TM._dtype(cfg.param_dtype)
-    meta = torch.device("meta")
-    tree = T.init_stack(cfg, None, dtype, meta)
-    tree["embed"] = torch.empty((cfg.vocab_size, cfg.d_model), dtype=dtype,
-                                device=meta)
-    tree["ln_final/scale"] = L.init_norm(cfg, cfg.d_model, dtype,
-                                         meta)["scale"]
-    return tree
+    return TM.param_tree(cfg, None, torch.device("meta"))
 
 
 def assert_layout_matches_jax(jcfg, tcfg):

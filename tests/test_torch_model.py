@@ -2,7 +2,10 @@
 llama3.2-3b config in fp32, both started from the same weights (JAX's
 init carried across by ``params_from_jax``); ``loss_fn`` and its gradient
 (autograd vs ``jax.grad``) agree to rtol 1e-4 per leaf, for the full
-cross-entropy and the vocab-chunked one.
+cross-entropy and the vocab-chunked one. Every ported architecture's
+reduced config inits on the CPU with the analytic count, which equals
+the reference's at the published and reduced configs; the architectures
+the port refuses are exactly the reference's MLA and MoE ones.
 """
 import dataclasses
 from functools import partial
@@ -13,15 +16,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_reduced as jax_get_reduced
 from repro.models import model as JM
+from repro_torch import configs as TC
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.convert import flatten_tree, params_from_jax
 from repro_torch.core.controller import make_grad_fn
 from repro_torch.models import model as TM
 
 RTOL = 1e-4
+PORTED = ("llama3.2-3b", "gemma3-1b", "mamba2-2.7b", "hymba-1.5b",
+          "minitron-4b", "paligemma-3b", "whisper-tiny")
 
 
 @pytest.fixture(scope="module")
@@ -96,3 +103,42 @@ def test_unported_model_parts_raise():
         TM.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         get_config("minicpm3-4b")
+
+
+@pytest.fixture
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_every_ported_reduced_config_inits(arch, one_torch_thread):
+    cfg = get_reduced(arch)
+    assert cfg == TC._ARCHS[arch].reduced() and get_config(arch).name == arch
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    assert sum(v.numel() for v in params.values()) == \
+        TM.count_params_analytic(cfg)
+    assert all(bool(torch.isfinite(v).all()) for v in params.values())
+
+
+@pytest.mark.parametrize("preset", ["full", "reduced"])
+@pytest.mark.parametrize("arch", PORTED)
+def test_param_count_matches_jax(arch, preset):
+    get = {"full": (get_config, jax_get_config),
+           "reduced": (get_reduced, jax_get_reduced)}[preset]
+    assert TM.count_params_analytic(get[0](arch)) == \
+        JM.count_params_analytic(get[1](arch))
+
+
+def test_not_ported_is_exactly_mla_and_moe():
+    mla_moe = {a for a in ARCH_IDS
+               if jax_get_config(a).mla is not None
+               or jax_get_config(a).moe is not None}
+    assert set(TC._NOT_PORTED) == mla_moe
+    assert set(TC._ARCHS) == set(PORTED) == set(ARCH_IDS) - mla_moe
+    for arch in TC._NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            get_reduced(arch)

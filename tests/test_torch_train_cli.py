@@ -20,9 +20,9 @@ the CPU at the reduced preset.
 import pytest
 import torch
 
+from repro.core import availability as jax_availability
 from repro.core import (
     algorithm_names as jax_algorithm_names,
-    availability_names as jax_availability_names,
     staleness_weighting_names as jax_staleness_weighting_names,
     store_backend_names as jax_store_backend_names,
     update_space_names as jax_update_space_names,
@@ -61,6 +61,16 @@ def test_head_only_trains_its_targets():
                       "embed,ln_final*", "--rounds", "1"])
     assert sorted(tr.x) == ["embed", "ln_final.scale"]
     assert not torch.equal(tr.x["embed"], tr.base_params["embed"])
+
+
+def jax_availability_names():
+    """The availability models the reference registers at import: those
+    whose factory is defined in its module. ``tests/test_availability.py``
+    registers ``"_test_avail"`` in the reference's live registry at run
+    time, which a worker that runs both files still holds here."""
+    mod = jax_availability
+    return tuple(n for n in mod.availability_names()
+                 if mod._AVAILABILITY[n].__module__ == mod.__name__)
 
 
 def test_list_registries(capsys):

@@ -89,7 +89,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build()
-    spec = C._ssm_spec()
+    spec = C._lm_spec()
     mamba = dataclasses.replace(get_config("mamba2-2.7b"),
                                 loss_chunk_vocab=C.SSM_CHUNK)
     # phase 18's spec, as the entry point builds it
