@@ -38,8 +38,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
   11. the LM slice: llama3.2-3b widths in bf16, SCAFFOLD through the fused
      update kernel, with its launch count, kernel timing, memory and a
      profiled round
-  12. the LM momentum path: the same widths, local heavy-ball through B2,
-     the slot rows carried across rounds in the solver store, B2 timed
+  12. the LM momentum path: the same widths at 14 layers, local
+     heavy-ball through B2, the slot rows carried across rounds in the
+     solver store, B2 timed at all 28
   13. the quadratics slice: the K-step kernel path and the per-step fused
      path, launch counts, launch plans (more than one block) and
      agreement, a profiled fourth round; B3 timed in both layouts of A
@@ -50,7 +51,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      adam, fedprox and the head_only update space fall back to the
      per-step path by the reference's reasons (no B3/B4 launch)
   16. the paper's Table 5 (EMNIST-like, the 784-256-62 MLP, N 50, S 10,
-     K 25, similarity 0 and 10), its first 30 rounds through the sync
+     K 25, similarity 0 and 10), its first 20 rounds through the sync
      host loop: SGD, FedAvg and SCAFFOLD, SCAFFOLD's local steps through
      B1; best test accuracy, seconds a round, B1's launches, a profiled
      round; B1 timed at the MLP tree
@@ -160,9 +161,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
   39. whisper-tiny at its published widths (4 + 4 layers, fp32), 1500
      frames and 448 text tokens, batch 4, the full space through
      ``federated_round``: B1 12 on the one fp32 group
+  40. every ported family's reduced fp32 config (llama, gemma3 and hymba
+     past their windows, mamba2, minitron, whisper, paligemma,
+     minicpm3): ``decode_step`` on the card against the CPU within 1e-4
+     and against ``prefill`` on the card within 5e-4; B5 on the
+     prefills' band layers, no kernel in decode
+  41. gemma3-1b at its published widths, 26 layers, bf16: ``prefill`` at
+     batch 2 x 1024 (B5 22, one a "W" layer), the same tokens through
+     ``decode_step`` (the 512-slot rings wrap), the last 64 positions
+     within ``BF16_DECODE_BOUND`` of the prefill; ``generate`` 128 new
+     tokens: ms a step, tokens/s, peak memory
+  42. ``repro_torch.launch.serve.main --preset full --batch 8
+     --prompt-len 128 --max-new 128`` for llama3.2-3b, minitron-4b,
+     mamba2-2.7b and hymba-1.5b; mamba2 and hymba in fp32, prefill (the
+     chunked SSD) against decode (its recurrence) at 256 tokens
+  43. phase 19's LoRA checkpoint through ``serve.main --checkpoint``:
+     "serving merged checkpoint", the params bitwise
+     ``load_serving_params``'; a mismatched ``--arch`` refused
+  44. whisper-tiny: ``populate_encoder_cache`` over 1500 frames and 448
+     decode steps against the teacher-forced forward (fp32, 5e-4);
+     paligemma-3b: 16 decode steps at its published widths, finite
+  45. minicpm3-4b (MLA) through ``launch.train.main``: LoRA r 8 at 62
+     layers at the sequence the plan admits (B1); the full space at the
+     depth ``_lm_plan`` admits (B1), the trained model's absorbed MLA
+     decode against its prefill at 256 tokens
 
+Every decode of phases 40-45 runs under
+``torch.cuda.set_sync_debug_mode("error")``: a host sync fails it.
 Every LM phase logs its memory plan (``_lm_plan``) against its measured
-peak. Each main path runs with every launch count set to 0 just before it and
+peak. A profiled round records the CUDA activity alone; the profiler's
+own seconds are logged after each and summed at the end. Each main path runs with every launch count set to 0 just before it and
 read just after; a launch inside a captured CUDA graph counts at each
 replay. Every kernel's ``launches`` in the kernels line sums the paths
 that run it (``launches_by_path``), the scanned ones included.
@@ -173,7 +201,9 @@ or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -1099,7 +1129,8 @@ def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
     or "Y" layer keeps its q, k and v and recomputes its band in the
     backward pass, and an "F" layer past ``layers.FLASH_THRESHOLD``
     tokens keeps its fp32 q and one fp32 carry a kv block, recomputing
-    each block's scores; an "M" or "Y" layer's Mamba2 block
+    each block's scores; an MLA layer also its q, expanded keys and
+    values and two latents a token; an "M" or "Y" layer's Mamba2 block
     ``_ssm_token_bytes`` a token; an encoder's layers over its frames and the decoder's cross
     scores) and temporaries (the gradients of the vocab tables, both
     when the embeddings are untied; the CE's vocab chunks, or its full
@@ -1131,6 +1162,13 @@ def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
     n_full = pattern.count("F")
     n_attn = sum(k != "M" for k in pattern)
     act = n_attn * t * (10 * e + 5 * f) * ab
+    if cfg.mla is not None:
+        # MLA's own per token: q (pre-split and whole), the expanded keys
+        # (nope and whole), v, k_nope's up-projection, the two latents
+        m = cfg.mla
+        qk = h * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+        act += n_attn * t * (4 * qk + 2 * h * m.v_head_dim + m.q_lora_rank
+                             + m.kv_lora_rank) * ab
     if seq_len > L.FLASH_THRESHOLD:
         blocks = -(-seq_len // L.FLASH_BLOCK_KV)
         act += (n_full * (blocks + 1) * t * h * cfg.head_dim * 4
@@ -1230,6 +1268,10 @@ def _lm_trainer(cfg, spec, seq_len, **kw):
         seed=0, use_fused_update=True, device="cuda", **kw)
 
 
+# the profiler's own seconds after each profiled round, by tag
+PROFILER_SECONDS = {}
+
+
 def _device_time_ms(ev) -> float:
     us = getattr(ev, "self_device_time_total", None)
     if us is None:
@@ -1237,11 +1279,15 @@ def _device_time_ms(ev) -> float:
     return us / 1e3
 
 
-def _profile_round(tr, tag: str, kernels=(), want=None, tries=1):
+def _profile_round(tr, tag: str, kernels=(), want=None, tries=1,
+                   cpu: bool = False):
     """One more round of trainer ``tr`` under the profiler: logs the wall
     time, the device busy share, the top device times by kernel and the
     device time of each kernel whose name holds one of ``kernels``; writes
-    the table to ``OUT/<tag>_profile.txt``. ``want`` maps a name to the
+    the table to ``OUT/<tag>_profile.txt``. The profiler records the CUDA
+    activity alone (kernels, copies, memsets: all the busy share and the
+    kernel times read) unless ``cpu``: the CPU ops' events were most of a
+    round's and most of the profiler's own processing after it. ``want`` maps a name to the
     launches a round makes (or is a function of the launch counts the
     profiled round made, for a round whose launches vary): a profile that
     saw fewer lost events (on an H100 a quadratic round's profile lost its
@@ -1254,8 +1300,9 @@ def _profile_round(tr, tag: str, kernels=(), want=None, tries=1):
 
     for attempt in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if cpu else [])
+        with profile(activities=activities) as prof:
             # the profiler can miss a session's first device events: a
             # 1-element kernel goes first
             torch.ones(1, device="cuda").add_(1)
@@ -1306,9 +1353,12 @@ def _profile_round(tr, tag: str, kernels=(), want=None, tries=1):
     t1 = time.perf_counter()
     (OUT / f"{tag}_profile.txt").write_text(avgs.table(sort_by=sort_key,
                                                        row_limit=40))
+    own = collect + time.perf_counter() - t1
+    PROFILER_SECONDS[tag] = own
     log(f"{tag} profiled round: the profiler's own processing "
-        f"{collect + time.perf_counter() - t1:.1f} s after the last try "
-        f"({sum(e.count for e in avgs)} events)")
+        f"{own:.1f} s after the last try "
+        f"({sum(e.count for e in avgs)} events, "
+        f"{'CPU and CUDA' if cpu else 'CUDA'} activity)")
     return busy / wall if busy > 0 else None
 
 
@@ -1479,9 +1529,17 @@ def phase_gemma_full(result):
     torch.cuda.empty_cache()
 
 
+# the LM momentum trainer's depth: its rounds are host-bound on the slot
+# and c_i rows (77 GB at the plan's 27 layers, ~25 s a round on an H100
+# machine); cut to keep the script in its time limit as the serving
+# phases came
+LM_MOMENTUM_LAYERS = 14
+
+
 def phase_lm_momentum(result):
     """Phase 12: local heavy-ball on the LM through B2, the slot rows
-    carried across rounds in the solver store; B2 timed on the tree."""
+    carried across rounds in the solver store, the trainer at
+    ``LM_MOMENTUM_LAYERS``; B2 timed on the full-depth tree."""
     import torch
 
     from repro_torch.configs.base import FedRoundSpec
@@ -1495,6 +1553,11 @@ def phase_lm_momentum(result):
                         local_solver="momentum", local_momentum=0.9,
                         strategy="client_sequential")
     cfg, _, _ = _lm_fit(spec, seq_len, slot_bytes=4)
+    if cfg.num_layers > LM_MOMENTUM_LAYERS:
+        log(f"reduced: num_layers {cfg.num_layers} -> {LM_MOMENTUM_LAYERS} "
+            f"(lm momentum, the script's time limit; B2 is timed on the "
+            f"full-depth tree below)")
+        cfg = dataclasses.replace(cfg, num_layers=LM_MOMENTUM_LAYERS)
     t0 = time.perf_counter()
     tr = _lm_trainer(cfg, spec, seq_len)
     torch.cuda.synchronize()
@@ -1616,12 +1679,16 @@ HEAD_TARGETS = "embed,ln_final*"
 
 def _space_sizes(cfg, space: str, rank: int = 0):
     """(params the space's targets hold, elements of its delta tree) at
-    cfg: ``lora`` on the seven matmul weights of every layer, A (in, r)
-    and B (r, out) each; ``head_only`` on ``embed`` and ``ln_final``."""
+    cfg: ``lora`` on the seven matmul weights of every layer (MLA's
+    layers: ``wo`` and the MLP's three), A (in, r) and B (r, out) each;
+    ``head_only`` on ``embed`` and ``ln_final``."""
     e, f = cfg.d_model, cfg.d_ff
     q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     if space == "lora":
         shapes = ((e, q), (e, kv), (e, kv), (q, e), (e, f), (e, f), (f, e))
+        if cfg.mla is not None:  # wo and the MLP; not MLA's factored ones
+            shapes = ((cfg.num_heads * cfg.mla.v_head_dim, e), (e, f), (e, f),
+                      (f, e))
         return (cfg.num_layers * sum(i * o for i, o in shapes),
                 cfg.num_layers * rank * sum(i + o for i, o in shapes))
     n = cfg.vocab_size * e + e
@@ -1894,7 +1961,7 @@ def phase_lora_gemma(result):
     the unbroken run bitwise; the checkpoint serves through
     ``load_serving_params``, equal to the saving trainer's
     ``eval_params()``; B5 on every "W" layer, B1 on the fp32 group of 126
-    leaves."""
+    leaves. The checkpoint stays for phase 43 to serve."""
     import numpy as np
     import torch
 
@@ -1988,7 +2055,7 @@ def phase_lora_gemma(result):
         raise AssertionError(f"lora gemma: resume apart at {apart[:5]}")
     tr.close()
     del tr, unbroken, resumed
-    Path(path).unlink()
+    result["lora_gemma_ckpt"] = path  # served by phase 43, deleted there
     torch.cuda.empty_cache()
 
 
@@ -2308,10 +2375,11 @@ def phase_quad_sched_adam(ds, result):
 # 784-256-62 MLP, N 50 of 20,000 samples, S 10, K 25, eta_l 0.3, batch
 # 0.2 of a shard, 150 rounds; the scanned engine (phase 23) runs all 150
 # in chunks of 5, test accuracy every 5 rounds; the sync host loop (phase
-# 16) the first 30, test accuracy every 10
+# 16) the first 20 (30 until the serving phases came: cut to keep the
+# script in its time limit), test accuracy every 10
 EMNIST = dict(num_clients=50, samples=20_000, seed=0)
 EMNIST_ROUNDS, EMNIST_SCAN_CHUNK = 150, 5
-EMNIST_SYNC_ROUNDS, EMNIST_EVAL_EVERY = 30, 10
+EMNIST_SYNC_ROUNDS, EMNIST_EVAL_EVERY = 20, 10
 EMNIST_SPEC = dict(num_clients=50, num_sampled=10, local_steps=25, eta_l=0.3)
 # the MLP's leaves: w1 784x256, b1 256, w2 256x62, b2 62
 MLP_PARAMS = 784 * 256 + 256 + 256 * 62 + 62
@@ -2482,7 +2550,7 @@ def _time_b2_mlp(tr, spec, result):
 
 
 def phase_emnist_table5(result):
-    """Phase 16: the paper's Table 5 on the card, its first 30 rounds
+    """Phase 16: the paper's Table 5 on the card, its first 20 rounds
     through the sync host loop (phase 23 runs all 150 scanned). SGD
     (whole batch, K 1), FedAvg and SCAFFOLD at similarity 0 and 10; every
     SCAFFOLD local step through B1 (FedAvg and SGD have no correction, so
@@ -2497,6 +2565,8 @@ def phase_emnist_table5(result):
     from repro_torch.models import simple
 
     best_all = {}
+    log(f"reduced: Table 5 sync rounds 30 -> {EMNIST_SYNC_ROUNDS} (the "
+        f"script's time limit; phase 23 runs all 150 scanned)")
     for sim in (0.0, 10.0):
         t0 = time.perf_counter()
         data = EmnistLikeFederated(similarity_pct=sim, **EMNIST)
@@ -4803,6 +4873,510 @@ def phase_whisper_full(result):
     result.setdefault("b1_paths", {})["whisper-tiny"] = n
 
 
+# ---------------------------------------------------------------------------
+# decode and serving; MLA (minicpm3-4b)
+# ---------------------------------------------------------------------------
+
+# phase 40's reduced archs and decode lengths: the parity tests' (gemma3
+# and hymba past their windows of 64), whisper's 24 text tokens over 64
+# frames, paligemma's 16 steps
+DECODE_SMALL = (("llama3.2-3b", 32), ("gemma3-1b", 192), ("mamba2-2.7b", 64),
+                ("hymba-1.5b", 128), ("minitron-4b", 32), ("whisper-tiny", 24),
+                ("paligemma-3b", 16), ("minicpm3-4b", 32))
+# bf16 decode against the bf16 prefill, max |diff| over max |logit| at
+# the last 64 positions (phase 41, gemma3-1b; phase 45, minicpm3-4b):
+# set before the first card run at 3x the CPU's 0.032 (gemma3) and 0.027
+# (minicpm3) at the reduced widths and full depth; a ring, mask or latent
+# fault gives O(1)
+BF16_DECODE_BOUND = 0.1
+# fp32 prefill (the SSD's chunked form) against decode (its recurrence,
+# fp32 state) at 256 tokens, published widths, max |diff| over max
+# |logit| (phase 42): in bf16 the two forms' roundings differ (the
+# chunked conv rounds each of its K products) and a random 64-layer
+# stack amplifies them to 0.71 of max |logit| at the reduced width (CPU),
+# so fp32 is held; the CPU gives 4.4e-4 at the reduced width and 64
+# layers, 4.5e-5 at the published width and 2 layers
+SSM_DECODE_BOUND = 1e-2
+# card against CPU decode and decode against the forward, max |diff| of
+# the fp32 logits (phase 40; the latter is the JAX package's own test's
+# bound)
+DECODE_CPU_BOUND, DECODE_FORWARD_BOUND = 1e-4, 5e-4
+SERVE_ARCHS = ("llama3.2-3b", "minitron-4b", "mamba2-2.7b", "hymba-1.5b")
+SERVE_ARGS = ("--preset", "full", "--batch", "8", "--prompt-len", "128",
+              "--max-new", "128")
+MINICPM_CHUNK = 18362  # minicpm3-4b's CE vocab chunk (4 of its 73448)
+# the sequences phase 45 tries for LoRA at all 62 layers, longest first
+MINICPM_SEQS = (2048, 1024, 512)
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """Within the block a host sync with the card raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def _guarded_generate():
+    """``repro_torch.launch.serve.generate`` runs under ``_no_host_sync``
+    within the block (``serve.main`` times it with syncs around it)."""
+    from repro_torch.launch import serve
+
+    inner = serve.generate
+
+    def guarded(*args, **kw):
+        with _no_host_sync():
+            return inner(*args, **kw)
+
+    serve.generate = guarded
+    try:
+        yield
+    finally:
+        serve.generate = inner
+
+
+def _decode_tokens(cfg, params, tokens, cache, keep=None):
+    """``decode_step`` over every column of ``tokens`` (B, S) from
+    ``cache``, position i at step i, in inference mode, on the card under
+    ``_no_host_sync``;
+    returns the logits (B, n, V) of the last ``keep`` steps (all when
+    None) and the host seconds of the steps, the card synchronised
+    after."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    b, s = tokens.shape
+    dev = tokens.device
+    guard = _no_host_sync() if dev.type == "cuda" else contextlib.nullcontext()
+    out = []
+    t0 = time.perf_counter()
+    with torch.inference_mode(), guard:
+        for i in range(s):
+            lg, cache = M.decode_step(
+                cfg, params, cache, tokens[:, i:i + 1],
+                torch.full((b,), i, dtype=torch.int32, device=dev))
+            if keep is None or i >= s - keep:
+                out.append(lg[:, 0])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return torch.stack(out, dim=1), time.perf_counter() - t0
+
+
+def _band_layers(cfg, seq_len: int) -> int:
+    """Layers whose prefill at ``seq_len`` takes B5: ``"W"`` (and a
+    windowed ``"Y"``) layers at S a multiple of the window, two windows
+    or more."""
+    w = cfg.sliding_window
+    if not w or seq_len % w or seq_len < 2 * w:
+        return 0
+    return sum(k in "WY" for k in cfg.pattern_for_layers())
+
+
+def _want_only(tag, counts, **nonzero) -> None:
+    """Hold the launch counts to ``nonzero`` and 0 for every other."""
+    want = _want_launches(**nonzero)
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != {want}")
+
+
+def _peak_gb() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_decode_small(result):
+    """Phase 40: every ported family's reduced fp32 config (llama, gemma3
+    past its window, mamba2, hymba past its window, minitron, whisper
+    over 64 frames, paligemma, minicpm3's MLA): ``decode_step`` on the
+    card (no host sync) against the same steps on the CPU within 1e-4,
+    and against ``prefill`` on the card within 5e-4 (not paligemma: its
+    forward attends to the image prefix, which a text decode has not
+    seen); no kernel in decode, B5 on the prefill's band layers."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as M
+
+    b5 = 0
+    for arch, s in DECODE_SMALL:
+        cfg = get_reduced(arch)
+        p_cpu = M.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+        p_card = {k: v.cuda() for k, v in p_cpu.items()}
+        gen = torch.Generator().manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, s),
+                                         generator=gen)}
+        if cfg.encoder is not None:
+            batch["frames"] = torch.randn(
+                (2, cfg.encoder.num_frames, cfg.d_model), generator=gen)
+        if cfg.num_prefix_tokens:
+            batch["patches"] = torch.randn(
+                (2, cfg.num_prefix_tokens, cfg.d_model), generator=gen)
+        logits = {}
+        reset_launches()
+        for dev, p in (("cpu", p_cpu), ("cuda", p_card)):
+            cache = M.init_cache(cfg, 2, s, device=dev)
+            if cfg.encoder is not None:
+                frames = batch["frames"].to(dev)
+                guard = (_no_host_sync() if dev == "cuda"
+                         else contextlib.nullcontext())
+                with torch.no_grad(), guard:
+                    M.populate_encoder_cache(cfg, p, cache, frames)
+            logits[dev], _ = _decode_tokens(cfg, p, batch["tokens"].to(dev),
+                                            cache)
+        _want_only(f"decode check {arch}", launches())
+        err_cpu = float((logits["cuda"].cpu() - logits["cpu"]).abs().max())
+        msg = (f"decode check: 2-layer fp32 {arch}, {s} decode steps on the "
+               f"card (no host sync) vs the CPU: max |diff| {err_cpu:.2e} "
+               f"(bound {DECODE_CPU_BOUND:.0e})")
+        err_fwd = 0.0
+        if not cfg.num_prefix_tokens:
+            reset_launches()
+            with torch.no_grad():
+                full = M.prefill(cfg, p_card, {k: v.cuda() for k, v in
+                                               batch.items()})
+            n_band = _band_layers(cfg, s)
+            _want_only(f"decode check {arch} prefill", launches(),
+                       swa_attention=n_band)
+            b5 += n_band
+            err_fwd = float((logits["cuda"] - full).abs().max())
+            msg += (f"; vs prefill on the card {err_fwd:.2e} (bound "
+                    f"{DECODE_FORWARD_BOUND:.0e}), B5 {n_band} in the "
+                    f"prefill")
+        log(msg)
+        if not (err_cpu <= DECODE_CPU_BOUND
+                and err_fwd <= DECODE_FORWARD_BOUND):
+            raise AssertionError(f"decode check {arch}: {err_cpu} "
+                                 f"{err_fwd}")
+    result.setdefault("b5_paths", {})["reduced prefill vs decode"] = b5
+
+
+def _decode_rate(tag, batch, new, steps, secs):
+    log(f"{tag}: {steps} decode steps in {secs:.3f} s, "
+        f"{1e3 * secs / steps:.2f} ms a step, {batch * new / secs:.1f} new "
+        f"tokens/s ({batch} x {new}), peak device memory "
+        f"{_peak_gb():.2f} GB")
+
+
+def _prefill_vs_decode(tag, cfg, params, seq_len, bound, b=2, keep=None):
+    """``prefill`` of a seeded (b, seq_len) token batch against the same
+    tokens through ``decode_step`` (no host sync): max |diff| over max
+    |logit| at the last ``keep`` positions (all when None), held to
+    ``bound``; returns the launches of the prefill and of the decode, the
+    decode's host seconds and its cache."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (b, seq_len), generator=gen,
+                           device="cuda")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = M.prefill(cfg, params, {"tokens": tokens})
+        full = full[:, -(keep or seq_len):].float()
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pre = launches()
+    reset_launches()
+    cache = M.init_cache(cfg, b, seq_len)
+    dec, secs = _decode_tokens(cfg, params, tokens, cache, keep=keep)
+    rel = float((dec.float() - full).abs().max() / full.abs().max())
+    log(f"{tag}: prefill of {b} x {seq_len} tokens {t_pre:.3f} s; "
+        f"{seq_len} decode steps {secs:.3f} s ({1e3 * secs / seq_len:.2f} "
+        f"ms a step); decode vs prefill max |diff| / max |logit| "
+        f"{rel:.3e} over the last {keep or seq_len} positions (bound "
+        f"{bound:.0e}); launches: prefill {pre}, decode {launches()}")
+    if not rel <= bound:
+        raise AssertionError(f"{tag}: decode vs prefill {rel} > {bound}")
+    return pre, launches(), secs, cache
+
+
+def phase_gemma_serve(result):
+    """Phase 41: gemma3-1b at its published widths, 26 layers, bf16:
+    ``prefill`` at batch 2 x 1024 tokens (each of the 22 "W" layers one
+    B5 launch: 1024 = 2 windows), then the same tokens through
+    ``decode_step`` (each "W" layer's 512-slot ring wraps), the last 64
+    positions' logits against the prefill's within BF16_DECODE_BOUND;
+    then ``generate`` 128 new tokens after an 8-token prompt: ms a
+    step, tokens/s, peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_config("gemma3-1b")
+    b, s, keep = 2, 1024, 64
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.reset_peak_memory_stats()
+    n_w = _band_layers(cfg, s)
+    pre, dec, secs, cache = _prefill_vs_decode(
+        "gemma serve", cfg, params, s, BF16_DECODE_BOUND, b=b, keep=keep)
+    _want_only("gemma serve prefill", pre, swa_attention=n_w)
+    _want_only("gemma serve decode", dec)
+    ring = tuple(cache["layers/0/attn/k"].shape)
+    log(f"gemma serve: B5 {pre['swa_attention']} launches in the prefill "
+        f"(want {n_w} W layers, 22); W cache {ring} (a 512-slot ring for "
+        f"{s} tokens); {b * s / secs:.1f} tokens/s through decode_step; "
+        f"peak device memory {_peak_gb():.2f} GB")
+    if n_w != 22 or ring[2] != cfg.sliding_window:
+        raise AssertionError(f"gemma serve: {n_w} band layers, ring {ring}")
+    result.setdefault("b5_paths", {})["gemma3-1b prefill"] = n_w
+    del cache
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = torch.randint(0, cfg.vocab_size, (b, 8), device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(3))
+    reset_launches()
+    t0 = time.perf_counter()
+    with _guarded_generate():
+        out = serve.generate(cfg, params, prompts, 128)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    _want_only("gemma generate", launches())
+    _decode_rate("gemma serve generate", b, 128, 8 + 128, secs)
+    if out.shape != (b, 128) or int(out.min()) < 0 or \
+            int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"gemma generate: {out.shape}")
+
+
+def phase_serve_full(result):
+    """Phase 42: ``repro_torch.launch.serve.main --preset full --batch 8
+    --prompt-len 128 --max-new 128`` for llama3.2-3b, minitron-4b
+    (untied), mamba2-2.7b and hymba-1.5b, ``generate`` under
+    ``_no_host_sync``: tokens/s, ms a step, peak memory; then mamba2-2.7b
+    and hymba-1.5b in fp32 at their published widths, prefill (the SSD's
+    chunked form) against decode (its recurrence) at 256 tokens."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    for arch in SERVE_ARCHS:
+        reset_launches()
+        with _guarded_generate():
+            served = serve.main(["--arch", arch, *SERVE_ARGS])
+        _want_only(f"serve {arch}", launches())
+        tok = served.tokens
+        log(f"serve {arch}: {served.steps} steps, {served.ms_per_step:.2f} ms"
+            f" a step, {tok.numel() / served.seconds:.1f} new tokens/s, peak "
+            f"device memory {served.peak_bytes / 1e9:.2f} GB")
+        vocab = get_config(arch).vocab_size
+        if tok.shape != (8, 128) or int(tok.min()) < 0 or \
+                int(tok.max()) >= vocab:
+            raise AssertionError(f"serve {arch}: tokens {tok.shape}")
+        del served, tok
+        torch.cuda.empty_cache()
+    for arch in ("mamba2-2.7b", "hymba-1.5b"):
+        cfg = dataclasses.replace(get_config(arch), param_dtype="float32",
+                                  compute_dtype="float32")
+        params = M.init_params(cfg,
+                               torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.reset_peak_memory_stats()
+        pre, dec, _, cache = _prefill_vs_decode(
+            f"{arch} fp32 prefill vs decode", cfg, params, 256,
+            SSM_DECODE_BOUND)
+        _want_only(f"{arch} prefill", pre)
+        _want_only(f"{arch} decode", dec)
+        state = cache["layers/0/mamba/state"]
+        log(f"{arch} fp32: state {tuple(state.shape)} {state.dtype}; peak "
+            f"device memory {_peak_gb():.2f} GB")
+        del params, cache, state
+        torch.cuda.empty_cache()
+
+
+def phase_serve_checkpoint(result):
+    """Phase 43: the closed train-to-serve loop. ``serve.main --arch
+    gemma3-1b --preset full --checkpoint`` of phase 19's LoRA checkpoint
+    serves the merged parameters ("serving merged checkpoint"), bitwise
+    ``load_serving_params``'; a mismatched ``--arch`` is refused."""
+    import torch
+
+    from repro_torch.checkpoint import load_serving_params
+    from repro_torch.launch import serve
+
+    path = result.pop("lora_gemma_ckpt")
+    text = io.StringIO()
+    with _guarded_generate(), contextlib.redirect_stdout(text):
+        served = serve.main(["--arch", "gemma3-1b", "--preset", "full",
+                             "--checkpoint", path, "--batch", "2",
+                             "--prompt-len", "16", "--max-new", "16"])
+    lines = text.getvalue().splitlines()
+    want = load_serving_params(path)
+    apart = [k for k in want if not torch.equal(served.params[k], want[k])]
+    log(f"serve checkpoint: {lines[0]!r}; {len(served.params)} leaves, "
+        f"{len(apart)} apart from load_serving_params (want 0); "
+        f"{served.ms_per_step:.2f} ms a step")
+    if not lines[0].startswith("serving merged checkpoint") or apart or \
+            sorted(want) != sorted(served.params):
+        raise AssertionError(f"serve checkpoint: {lines[:2]}, {apart[:4]}")
+    del served, want
+    torch.cuda.empty_cache()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve.main(["--arch", "llama3.2-3b", "--preset", "full",
+                        "--checkpoint", path])
+    except SystemExit as e:
+        log(f"serve checkpoint: --arch llama3.2-3b refused: "
+            f"{str(e)[:90]}...")
+    else:
+        raise AssertionError("serve checkpoint: a mismatched --arch served")
+    Path(path).unlink()
+    torch.cuda.empty_cache()
+
+
+def phase_encdec_serve(result):
+    """Phase 44: whisper-tiny at its published widths (fp32):
+    ``populate_encoder_cache`` over 1500 frames, then 448 decode steps
+    against the teacher-forced forward within 5e-4; paligemma-3b at its
+    published widths (bf16): 16 decode steps, finite (phase 40 holds its
+    reduced config to the CPU)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("whisper-tiny")
+    b, s = 2, 448
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda")
+    frames = torch.randn((b, cfg.encoder.num_frames, cfg.d_model),
+                         generator=gen, device="cuda")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        full = M.prefill(cfg, params, {"tokens": tokens, "frames": frames})
+    cache = M.init_cache(cfg, b, s)
+    t0 = time.perf_counter()
+    with torch.no_grad(), _no_host_sync():
+        M.populate_encoder_cache(cfg, params, cache, frames)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    dec, secs = _decode_tokens(cfg, params, tokens, cache)
+    err = float((dec - full).abs().max())
+    _want_only("whisper serve", launches())
+    log(f"whisper serve: populate_encoder_cache over "
+        f"{cfg.encoder.num_frames} frames {t_enc:.3f} s; {s} decode steps "
+        f"{secs:.3f} s ({1e3 * secs / s:.2f} ms a step); max |diff| to the "
+        f"teacher-forced forward {err:.2e} (bound {DECODE_FORWARD_BOUND:.0e})"
+        f"; peak device memory {_peak_gb():.2f} GB")
+    if not err <= DECODE_FORWARD_BOUND:
+        raise AssertionError(f"whisper serve: {err}")
+    del params, cache, full, dec
+    torch.cuda.empty_cache()
+
+    cfg = get_config("paligemma-3b")
+    steps = 16
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (b, steps), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    torch.cuda.reset_peak_memory_stats()
+    dec, secs = _decode_tokens(cfg, params, tokens,
+                               M.init_cache(cfg, b, steps))
+    finite = bool(torch.isfinite(dec).all())
+    _want_only("paligemma serve", launches())
+    _decode_rate("paligemma serve", b, steps, steps, secs)
+    if not finite or dec.shape != (b, steps, cfg.vocab_size):
+        raise AssertionError(f"paligemma serve: {dec.shape}, finite "
+                             f"{finite}")
+    del params, dec
+    torch.cuda.empty_cache()
+
+
+def phase_minicpm3(result):
+    """Phase 45: minicpm3-4b (MLA) at its published widths, bf16, through
+    ``repro_torch.launch.train.main``: LoRA r 8 on the default targets
+    (``wo`` and the MLP: MLA's factored projections are not targeted) at
+    all 62 layers at the longest of ``MINICPM_SEQS`` whose plan fits (the
+    dense "F" layers' probabilities are ~1 GB a layer at 2048), B1 on the
+    fp32 delta tree. Then the full space through the trainer at the
+    depth ``_lm_plan`` admits at that sequence, logged as a cut (B1 on
+    the one bf16 group), and the trained model served: prefill against
+    MLA's absorbed decode at 256 tokens within BF16_DECODE_BOUND."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    base = dataclasses.replace(get_config("minicpm3-4b"),
+                               loss_chunk_vocab=MINICPM_CHUNK)
+    n_t, n_delta = _space_sizes(base, "lora", LORA_RANK)
+    for seq_len in MINICPM_SEQS:
+        plan = _lm_plan(base, seq_len, 1, subset=(n_t, 4 * n_delta))[2]
+        log(f"minicpm3: LoRA plan at seq {seq_len}, 62 layers: "
+            f"{plan / 1e9:.1f} GB (limit {LM_MEMORY_LIMIT / 1e9:.0f} GB)")
+        if plan <= LM_MEMORY_LIMIT:
+            break
+    if seq_len != MINICPM_SEQS[0]:
+        log(f"reduced: seq {MINICPM_SEQS[0]} -> {seq_len} (minicpm3-4b, "
+            f"depth kept at {base.num_layers} for LoRA)")
+    elements, plan = _subset_plan("lora minicpm3", base, seq_len, "lora",
+                                  LORA_RANK)
+    rounds, steps = 2, 2 * 2
+    reset_launches()
+    with _RoundLog("lora minicpm3", steps * seq_len, plan) as rl:
+        tr = train.main(_train_argv("minicpm3-4b", seq_len, rounds,
+                                    MINICPM_CHUNK, "--update-space", "lora",
+                                    "--lora-rank", str(LORA_RANK)))
+    counts = launches()
+    _check_subset_rounds("lora minicpm3", tr, rl.rows, "lora", elements, 4)
+    targets = sorted({k.rsplit("/", 1)[0].rsplit(".", 1)[-1] for k in tr.x})
+    log(f"lora minicpm3: {len(tr.x)} delta leaves on {targets}")
+    if targets != ["w_down", "w_gate", "w_up", "wo"]:
+        raise AssertionError(f"lora minicpm3: delta tree {sorted(tr.x)}")
+    n = _want_b1("lora minicpm3", counts, tr.spec, 1, rounds)
+    result.setdefault("b1_paths", {})["lora minicpm3-4b"] = n
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+    spec, rounds = _lm_spec(), 2
+    cut, _, _ = _lm_fit(spec, seq_len, arch="minicpm3-4b",
+                        chunk=MINICPM_CHUNK)
+    plan = _lm_plan(cut, seq_len, spec.local_batch)[2]
+    tr, counts, secs, peaks = _lm_rounds("minicpm3", cut, spec, seq_len,
+                                         rounds, plan)
+    groups = len(_b1_groups(tr))
+    n = _want_b1("minicpm3", counts, spec, groups, rounds)
+    _plan_vs_peak(f"minicpm3 at {cut.num_layers} layers", plan, max(peaks))
+    if groups != 1:
+        raise AssertionError(f"minicpm3: {groups} groups")
+    result.setdefault("b1_paths", {})["minicpm3-4b"] = n
+    served = tr.eval_params()
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pre, dec, _, cache = _prefill_vs_decode(
+        f"minicpm3 served ({cut.num_layers} layers, trained) MLA", cut,
+        served, 256, BF16_DECODE_BOUND)
+    _want_only("minicpm3 prefill", pre)
+    _want_only("minicpm3 decode", dec)
+    log(f"minicpm3 served: latent cache ckv "
+        f"{tuple(cache['layers/0/attn/ckv'].shape)}, k_rope "
+        f"{tuple(cache['layers/0/attn/k_rope'].shape)}; peak device memory "
+        f"{_peak_gb():.2f} GB")
+    del served, cache
+    torch.cuda.empty_cache()
+
+
 def _phase(fn, *args):
     """Run one phase and log its seconds (host clock, the card
     synchronised after it)."""
@@ -4875,6 +5449,15 @@ def main() -> int:
     _phase(phase_paligemma_full, result)
     _phase(phase_gemma_long, result)
     _phase(phase_whisper_full, result)
+    _phase(phase_decode_small, result)
+    _phase(phase_gemma_serve, result)
+    _phase(phase_serve_full, result)
+    _phase(phase_serve_checkpoint, result)
+    _phase(phase_encdec_serve, result)
+    _phase(phase_minicpm3, result)
+    log(f"the profiler's own processing: "
+        f"{sum(PROFILER_SECONDS.values()):.1f} s in all (" + ", ".join(
+            f"{k} {v:.1f}" for k, v in PROFILER_SECONDS.items()) + ")")
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     # B1-B4 are bound by bytes and no one PyTorch call computes them
     for key in ("b1", "b2", "b3", "b4", "b5"):

@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``get_config`` / ``get_reduced``.
 
 llama3.2-3b, gemma3-1b, mamba2-2.7b, hymba-1.5b, minitron-4b,
-paligemma-3b and whisper-tiny are ported; the JAX package's MLA and MoE
-architectures raise ``NotImplementedError``.
+paligemma-3b, whisper-tiny and minicpm3-4b (MLA) are ported; the JAX
+package's MoE architectures raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from repro_torch.configs import (
     hymba_1_5b,
     llama3_2_3b,
     mamba2_2_7b,
+    minicpm3_4b,
     minitron_4b,
     paligemma_3b,
     whisper_tiny,
@@ -18,6 +19,7 @@ from repro_torch.configs import (
 from repro_torch.configs.base import (  # noqa: F401
     EncoderConfig,
     FedRoundSpec,
+    MLAConfig,
     ModelConfig,
     SSMConfig,
 )
@@ -25,10 +27,10 @@ from repro_torch.configs.base import (  # noqa: F401
 _ARCHS = {"llama3.2-3b": llama3_2_3b, "gemma3-1b": gemma3_1b,
           "mamba2-2.7b": mamba2_2_7b, "hymba-1.5b": hymba_1_5b,
           "minitron-4b": minitron_4b, "paligemma-3b": paligemma_3b,
-          "whisper-tiny": whisper_tiny}
+          "whisper-tiny": whisper_tiny, "minicpm3-4b": minicpm3_4b}
 
-# the JAX package's other architectures, not ported yet (MLA, MoE)
-_NOT_PORTED = ("minicpm3-4b", "deepseek-v3-671b", "qwen2-moe-a2.7b")
+# the JAX package's other architectures, not ported yet (MoE)
+_NOT_PORTED = ("deepseek-v3-671b", "qwen2-moe-a2.7b")
 
 def _module(arch_id: str):
     if arch_id in _NOT_PORTED:

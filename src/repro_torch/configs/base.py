@@ -1,8 +1,9 @@
 """Config dataclasses for models and federated rounds.
 
-A copy of the JAX package's ``configs/base.py`` (``SSMConfig``,
-``EncoderConfig``, ``ModelConfig`` and ``FedRoundSpec``), field for field, so that a spec
-means the same in both packages. ``FedRoundSpec`` validates its names against the port's live
+A copy of the JAX package's ``configs/base.py`` (``MLAConfig``,
+``SSMConfig``, ``EncoderConfig``, ``ModelConfig`` and ``FedRoundSpec``),
+field for field, so that a spec means the same in both packages.
+``FedRoundSpec`` validates its names against the port's live
 registries, as the reference does, so a name registered at run time
 (``repro_torch.core.register_algorithm``, ``register_compressor``, ...)
 builds a spec.
@@ -11,6 +12,18 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (MiniCPM3; the JAX package's
+    ``MLAConfig``)."""
+
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
 
 @dataclasses.dataclass(frozen=True)
 class SSMConfig:
@@ -45,9 +58,10 @@ class ModelConfig:
 
     ``ssm`` holds an :class:`SSMConfig` (the ``"M"`` and ``"Y"`` layers),
     ``encoder`` an :class:`EncoderConfig` (whisper's encoder tower and
-    its decoder's cross-attention); ``mla`` and ``moe`` hold the JAX
-    package's other sub-configs, whose models are not ported yet: the
-    port's model raises when one is set.
+    its decoder's cross-attention), ``mla`` an :class:`MLAConfig`
+    (MiniCPM3's attention); ``moe`` holds the JAX package's MoE
+    sub-config, whose models are not ported yet: the port's model raises
+    when it is set.
     """
 
     name: str

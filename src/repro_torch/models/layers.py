@@ -2,13 +2,18 @@
 ``models/layers.py``, their subset): init helpers, RMSNorm and layer
 norm, RoPE, dense GQA attention under the causal, sliding, prefix and
 full masks, the blocked online-softmax attention of long ``"F"``
-sequences, the banded local attention of ``"W"`` layers, the silu- and
-gelu-gated MLPs and the plain gelu MLP, and the Mamba2 SSD block of
-``"M"`` and ``"Y"`` layers.
+sequences, the banded local attention of ``"W"`` layers, MLA (multi-head
+latent attention), the silu- and gelu-gated MLPs and the plain gelu MLP,
+the Mamba2 SSD block of ``"M"`` and ``"Y"`` layers, and the one-token
+decode of each attention and of the SSD against its cache.
 
 Conventions as in the reference: activations (B, S, E); q/k/v
-(B, S, H, D); parameters are dicts of tensors. The other layers of the
-reference (MLA attention, MoE, decode) are not ported yet.
+(B, S, H, D); parameters are dicts of tensors. A decode cache is a dict
+of tensors too (``k``/``v``, ``ckv``/``k_rope``, ``conv``/``state``);
+a decode step writes its new entries into it in place, where the
+reference returns an updated copy. Positions ``pos`` (B,) are integer
+tensors on the device, and every mask and slot is computed there: a
+decode step reads no value back to the host. MoE is not ported yet.
 """
 from __future__ import annotations
 
@@ -91,13 +96,19 @@ def rope_freqs(head_dim: int, theta: float, device=None):
                                          device=device) / head_dim))
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (B, S, H, D), positions: (B, S) integer."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, device=x.device)
+def rope_table(positions, head_dim: int, theta: float):
+    """cos and sin of the RoPE angles at ``positions`` (B, S) integer,
+    each (B, S, 1, head_dim / 2) fp32."""
+    freqs = rope_freqs(head_dim, theta, device=positions.device)
     angles = positions[..., None].float() * freqs  # (B, S, d/2)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_rope(x, positions, theta: float, table=None):
+    """x: (B, S, H, D), positions: (B, S) integer. ``table``, the
+    ``rope_table`` of these positions at D, when the caller has it."""
+    cos, sin = (rope_table(positions, x.shape[-1], theta) if table is None
+                else table)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -276,6 +287,45 @@ def local_attention(q, k, v, *, window: int, scale: Optional[float] = None):
     return out.reshape(b, s, hq, v.shape[-1]).to(q.dtype)
 
 
+def decode_attention(q, k_cache, v_cache, pos, *, window: int = 0,
+                     scale: Optional[float] = None):
+    """One-token attention: q (B, 1, H, D) against a cache (B, C, Hkv,
+    D), ``pos`` (B,) the new token's index. GQA is a grouped einsum (q's
+    heads grouped by their kv head), not a repeated cache. q is scaled
+    in its dtype and cast to the cache's; the scores and p @ v are fp32
+    (the reference's ``preferred_element_type``), p cast to v's dtype
+    first. A ring-buffer cache (``C == window``) holds the last
+    ``window`` tokens once ``pos >= window``; otherwise the slots after
+    ``pos`` are masked."""
+    b, _, hq, d = q.shape
+    c, hkv = k_cache.shape[1], k_cache.shape[2]
+    n_rep = hq // hkv
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    qg = (q * torch.full((), scale, dtype=q.dtype, device=q.device)).reshape(
+        b, 1, hkv, n_rep, d).to(k_cache.dtype)
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(), k_cache.float())
+    slot = torch.arange(c, device=q.device)[None, :]
+    at = pos[:, None]
+    valid = slot <= at
+    if window and c == window:
+        valid = valid | (at >= window)
+    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", p.float(), v_cache.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def _write_rows(bufs, news, slot):
+    """buf[i, slot[i]] = new[i] for every row i of each pair, in place:
+    each ``buf`` (B, C, ...), its ``new`` (B, ...), ``slot`` (B,) integer
+    on the device."""
+    b, c = bufs[0].shape[:2]
+    rows = torch.arange(b, device=slot.device) * c + slot.long()
+    for buf, new in zip(bufs, news):
+        buf.view(b * c, *buf.shape[2:]).index_copy_(0, rows,
+                                                    new.to(buf.dtype))
+
+
 def init_attention(cfg, gen, dtype, device):
     """GQA projection weights wq, wk, wv, wo."""
     e, h, hkv, d = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -318,6 +368,151 @@ def attention_block(cfg, p, x, positions, *, kind: str, prefix_len: int = 0,
             dense_attention
         out = attend(q, k, v, mask_kind=mask_kind, prefix_len=prefix_len)
     return out.reshape(b, s, h * d) @ p["wo"]
+
+
+def attention_decode(cfg, p, x, cache, pos, *, kind: str, rope=None):
+    """One-token self-attention, x (B, 1, E) at ``pos`` (B,): RoPE at
+    ``pos`` (``rope``, its ``rope_table`` at head_dim, when the caller
+    shares one across layers), the new k and v written into ``cache``
+    (``k``, ``v``: (B, C, Hkv, D)) in place, at ``pos % C`` in a ``"W"``
+    layer's ring buffer (``C == window``) and at ``pos`` otherwise; then
+    ``decode_attention`` over the cache."""
+    b = x.shape[0]
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, 1, h, d)
+    k = (x @ p["wk"]).reshape(b, 1, hkv, d)
+    v = (x @ p["wv"]).reshape(b, 1, hkv, d)
+    if rope is None:
+        rope = rope_table(pos[:, None], d, cfg.rope_theta)
+    q = apply_rope(q, None, cfg.rope_theta, table=rope)
+    k = apply_rope(k, None, cfg.rope_theta, table=rope)
+    c = cache["k"].shape[1]
+    window = cfg.sliding_window if kind == "W" else 0
+    slot = pos % c if (window and c == window) else pos
+    _write_rows((cache["k"], cache["v"]), (k[:, 0], v[:, 0]), slot)
+    out = decode_attention(q, cache["k"], cache["v"], pos, window=window)
+    return out.reshape(b, 1, h * d) @ p["wo"]
+
+
+def init_attention_cache(cfg, batch, seq_len, dtype, kind: str, device):
+    """Zero k and v caches (B, C, Hkv, D): C is ``min(window, seq_len)``
+    for a ``"W"`` layer (a ring buffer once the window is full), else
+    ``seq_len``."""
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
+    c = min(cfg.sliding_window, seq_len) if kind == "W" else seq_len
+    return {k: torch.zeros((batch, c, hkv, d), dtype=dtype, device=device)
+            for k in ("k", "v")}
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (MiniCPM3)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg, gen, dtype, device):
+    """MLA's leaves, the reference's: the q path's down-projection, its
+    norm and up-projection (``wq_a``, ``q_norm/scale``, ``wq_b``), the
+    kv latent's down-projection and norm (``wkv_a``, ``kv_norm/scale``),
+    the shared RoPE key (``wk_rope``), the latent's up-projections to the
+    per-head keys and values (``wk_b``, ``wv_b``) and ``wo``."""
+    m = cfg.mla
+    e, h = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": dense_init(gen, (e, m.q_lora_rank), dtype, device),
+        "q_norm/scale": torch.zeros((m.q_lora_rank,), dtype=dtype,
+                                    device=device),
+        "wq_b": dense_init(gen, (m.q_lora_rank, h * qk), dtype, device),
+        "wkv_a": dense_init(gen, (e, m.kv_lora_rank), dtype, device),
+        "kv_norm/scale": torch.zeros((m.kv_lora_rank,), dtype=dtype,
+                                     device=device),
+        "wk_rope": dense_init(gen, (e, m.qk_rope_head_dim), dtype, device),
+        "wk_b": dense_init(gen, (m.kv_lora_rank, h * m.qk_nope_head_dim),
+                           dtype, device),
+        "wv_b": dense_init(gen, (m.kv_lora_rank, h * m.v_head_dim), dtype,
+                           device),
+        "wo": dense_init(gen, (h * m.v_head_dim, e), dtype, device),
+    }
+
+
+def mla_block(cfg, p, x, positions, *, prefix_len: int = 0):
+    """MLA self-attention over the full sequence (train / prefill): the
+    latent expanded to per-head keys and values. q and k have head dim
+    ``nope + rope`` and v ``v_head_dim``; the scale is ``1/sqrt(nope +
+    rope)``. Dense up to ``FLASH_THRESHOLD`` tokens, ``flash_attention``
+    beyond, as the reference routes it."""
+    m = cfg.mla
+    b, s, e = x.shape
+    h = cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    cq = rms_norm(x @ p["wq_a"], p["q_norm/scale"])
+    q = (cq @ p["wq_b"]).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = rms_norm(x @ p["wkv_a"], p["kv_norm/scale"])  # (B, S, R)
+    k_nope = (ckv @ p["wk_b"]).reshape(b, s, h, dn)
+    v = (ckv @ p["wv_b"]).reshape(b, s, h, dv)
+    k_rope = apply_rope((x @ p["wk_rope"]).reshape(b, s, 1, dr), positions,
+                        cfg.rope_theta).expand(b, s, h, dr)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope], dim=-1)
+    mask_kind = "prefix" if prefix_len else "causal"
+    attend = flash_attention if s > FLASH_THRESHOLD else dense_attention
+    out = attend(q_full, k_full, v, mask_kind=mask_kind,
+                 prefix_len=prefix_len, scale=1.0 / math.sqrt(dn + dr))
+    return out.reshape(b, s, h * dv) @ p["wo"]
+
+
+def mla_decode(cfg, p, x, cache, pos, rope=None):
+    """One-token MLA in the absorbed form: the cache holds only the
+    normed latent ``ckv`` (B, C, R) and the RoPE key ``k_rope`` (B, C,
+    rope), both written at ``pos`` in place. ``wk_b`` is folded into q
+    (scores ``(q_nope wk_b) ckv^T + q_rope k_rope^T``) and ``wv_b`` into
+    the output (``(p ckv) wv_b``): the per-head keys and values are never
+    built. The cache is contracted in fp32, q cast to its dtype first,
+    p to its dtype before the second product. ``rope``: the
+    ``rope_table`` at ``pos`` and the rope dim, when the caller has it."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.num_heads
+    dn, dr, dv, r = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+                     m.kv_lora_rank)
+    cq = rms_norm(x @ p["wq_a"], p["q_norm/scale"])
+    q = (cq @ p["wq_b"]).reshape(b, 1, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    if rope is None:
+        rope = rope_table(pos[:, None], dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, None, cfg.rope_theta, table=rope)
+    ckv_new = rms_norm(x @ p["wkv_a"], p["kv_norm/scale"]).reshape(b, r)
+    kr_new = apply_rope((x @ p["wk_rope"]).reshape(b, 1, 1, dr), None,
+                        cfg.rope_theta, table=rope).reshape(b, dr)
+    ckv, kr = cache["ckv"], cache["k_rope"]
+    _write_rows((ckv, kr), (ckv_new, kr_new), pos)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope,
+                         p["wk_b"].reshape(r, h, dn))
+    s_lat = torch.einsum("bqhr,bkr->bhqk", q_lat.to(ckv.dtype).float(),
+                         ckv.float())
+    s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.to(kr.dtype).float(),
+                          kr.float())
+    s = (s_lat + s_rope) * (1.0 / math.sqrt(dn + dr))
+    valid = torch.arange(ckv.shape[1], device=x.device)[None, :] <= \
+        pos[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    pattn = torch.softmax(s, dim=-1).to(ckv.dtype)
+    o_lat = torch.einsum("bhqk,bkr->bqhr", pattn.float(), ckv.float())
+    out = torch.einsum("bqhr,rhd->bqhd", o_lat.to(x.dtype),
+                       p["wv_b"].reshape(r, h, dv))
+    return out.reshape(b, 1, h * dv).to(x.dtype) @ p["wo"]
+
+
+def init_mla_cache(cfg, batch, seq_len, dtype, device):
+    """Zero latent caches: ``ckv`` (B, C, kv_lora_rank) and ``k_rope``
+    (B, C, qk_rope_head_dim)."""
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, seq_len, m.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, seq_len, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -464,3 +659,47 @@ def mamba_block(cfg, p, x):
     y = y.reshape(b, s, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["out_norm/scale"])
     return y @ p["w_out"]
+
+
+def mamba_decode(cfg, p, x, cache, pos):
+    """One-token Mamba2 step, x (B, 1, E): the conv over the cached
+    history (``conv`` (B, K-1, C), in the compute dtype) and the new
+    input; the state (``state`` (B, H, N, P), fp32) decayed by ``exp(dt
+    a)`` and fed ``dt B x``; y read out by C, plus the skip. Both cache
+    entries are written in place; ``pos`` is unused (the recurrence
+    carries the position)."""
+    sm = cfg.ssm
+    b, _, e = x.shape
+    di, h, n, g = sm.d_inner(e), sm.n_heads(e), sm.d_state, sm.n_groups
+    proj = x[:, 0] @ p["w_in"]  # (B, 2 di + 2 g n + h)
+    z, xin, bc, dt = torch.split(proj, [di, di, 2 * g * n, h], dim=-1)
+    conv_in = torch.cat([xin, bc], dim=-1)  # (B, C)
+    hist = torch.cat([cache["conv"], conv_in[:, None]], dim=1)  # (B, K, C)
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", hist, p["conv_w"])
+                      + p["conv_b"])
+    xin, bmat, cmat = torch.split(conv_out, [di, g * n, g * n], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"])  # (B, H)
+    decay = torch.exp(dt * -torch.exp(p["a_log"]))  # (B, H)
+    xh = xin.reshape(b, h, sm.head_dim).float()
+    state = cache["state"] * decay[:, :, None, None] + torch.einsum(
+        "bn,bh,bhp->bhnp", bmat.float(), dt, xh)
+    y = torch.einsum("bn,bhnp->bhp", cmat.float(), state)
+    y = y + xh * p["d_skip"][None, :, None]
+    y = y.reshape(b, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["out_norm/scale"])
+    cache["conv"].copy_(hist[:, 1:])
+    cache["state"].copy_(state)
+    return (y @ p["w_out"])[:, None]
+
+
+def init_mamba_cache(cfg, batch, dtype, device):
+    """Zero Mamba2 caches: the conv history ``conv`` (B, K-1, C) in
+    ``dtype`` and the SSD state ``state`` (B, H, N, P) in fp32."""
+    sm = cfg.ssm
+    e = cfg.d_model
+    conv_dim = sm.d_inner(e) + 2 * sm.n_groups * sm.d_state
+    return {"conv": torch.zeros((batch, sm.conv_kernel - 1, conv_dim),
+                                dtype=dtype, device=device),
+            "state": torch.zeros((batch, sm.n_heads(e), sm.d_state,
+                                  sm.head_dim), dtype=torch.float32,
+                                 device=device)}

@@ -1,5 +1,7 @@
 """Public model API (the JAX package's ``models/model.py``): init,
-forward and the next-token loss that the federated core consumes.
+forward and the next-token loss that the federated core consumes, and
+the serving substrate: ``prefill``, ``init_cache``,
+``populate_encoder_cache`` and ``decode_step``.
 
 Parameters are a flat ``dict[str, Tensor]`` keyed by the reference's
 pytree paths (``embed``, ``ln_final/scale``, ``layers/0/attn/wq``,
@@ -11,6 +13,11 @@ A batch is ``{"tokens", "labels"}`` of (B, S_text), plus the stub
 frontends' embeddings (B, P, E) where the model has one: ``patches``
 for a prefix LM (paligemma), ``frames`` for an encoder-decoder
 (whisper).
+
+A decode cache is a flat dict keyed by the reference cache's paths
+(``layers/<g>/attn/k``, ..., ``enc_out``; ``models.transformer``), on
+the parameters' device; ``decode_step`` writes it in place and reads
+nothing back to the host, so rows may sit at different positions.
 """
 from __future__ import annotations
 
@@ -33,9 +40,9 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.mla is not None or cfg.moe is not None:
+    if cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: MLA / MoE models are not ported yet")
+            f"{cfg.name}: MoE models are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +100,13 @@ def count_params_analytic(cfg) -> int:
                        cfg.head_dim, cfg.d_ff)
     norm = 2 * e if cfg.norm_kind == "layernorm" else e  # + the bias
     attn = e * h * d + 2 * e * hkv * d + h * d * e
+    if cfg.mla is not None:
+        m = cfg.mla
+        qr, kvr, dn, dr, dv = (m.q_lora_rank, m.kv_lora_rank,
+                               m.qk_nope_head_dim, m.qk_rope_head_dim,
+                               m.v_head_dim)
+        attn = (e * qr + qr + qr * h * (dn + dr) + e * kvr + kvr + e * dr
+                + kvr * h * (dn + dv) + h * dv * e)  # layers.init_mla
     mlp = (2 if cfg.mlp_kind == "gelu" else 3) * e * f
     dense = 2 * norm + attn + mlp
     cross = norm + attn if cfg.encoder is not None else 0
@@ -232,3 +246,62 @@ def loss_fn(cfg, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         nll = (logz - gold) * mask
     loss = nll.sum() / denom
     return loss, {"loss": loss, "ntokens": denom}
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def prefill(cfg, params, batch):
+    """The prompt's forward: logits (B, S, V). A ``"W"`` layer at S a
+    multiple of its window and at least two windows long runs B5, as in
+    training. Writes no cache (nor does the reference's)."""
+    logits, _ = forward(cfg, params, batch)
+    return logits
+
+
+def init_cache(cfg, batch_size: int, seq_len: int, device="cuda"):
+    """Zero decode caches for ``batch_size`` rows of up to ``seq_len``
+    tokens in the compute dtype (the SSD state in fp32), plus ``enc_out``
+    (B, frames, E) for an encoder-decoder."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = _dtype(cfg.compute_dtype)
+    cache = T.init_cache(cfg, batch_size, seq_len, dtype, dev)
+    if cfg.encoder is not None:
+        cache["enc_out"] = torch.zeros(
+            (batch_size, cfg.encoder.num_frames, cfg.d_model), dtype=dtype,
+            device=dev)
+    return cache
+
+
+def populate_encoder_cache(cfg, params, cache, frames):
+    """Encoder-decoder serving: the encoder runs once over ``frames`` (B,
+    T, E), and each decoder layer's cross-attention keys and values
+    ``enc_out @ wk`` and ``enc_out @ wv`` go into its ``cross_kv``
+    entries; writes ``cache`` in place and returns it."""
+    if cfg.encoder is None:
+        raise ValueError(f"{cfg.name} has no encoder")
+    enc_out = T.apply_encoder(cfg, T.sub(params, "encoder"),
+                              frames.to(_dtype(cfg.compute_dtype)))
+    b, t, _ = enc_out.shape
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
+    for gi, g in enumerate(T.layer_groups(cfg)):
+        prefix = f"layers/{gi}"
+        for i, p in enumerate(T._layers(params, prefix)):
+            for j, w in (("0", "cross/wk"), ("1", "cross/wv")):
+                cache[f"{prefix}/cross_kv/{j}"][i].copy_(
+                    (enc_out @ p[w]).reshape(b, t, hkv, d))
+    cache["enc_out"].copy_(enc_out)
+    return cache
+
+
+def decode_step(cfg, params, cache, tokens, pos):
+    """One decode step: ``tokens`` (B, 1) integer, ``pos`` (B,) integer
+    on the device, each row's index of its new token. Returns (logits
+    (B, 1, V), cache), the cache written in place."""
+    x = _embed(cfg, params, tokens)
+    x = T.decode_stack(cfg, params, x, cache, pos)
+    x = L.apply_norm(cfg, x, T.sub(params, "ln_final"))
+    return _unembed(cfg, params, x), cache

@@ -8,9 +8,18 @@ its own dtype (a bf16 model keeps the SSD's ``a_log``, ``dt_bias`` and
 The ``"F"`` (full causal or prefix-LM attention + dense MLP), ``"W"``
 (sliding-window attention + dense MLP), ``"M"`` (Mamba2 SSD) and ``"Y"``
 (attention and Mamba2 in parallel on one norm, + dense MLP) layers are
-ported, and so are the cross-attention of an encoder-decoder's decoder
-layers and the encoder tower (whisper); MoE layers raise
+ported, with MLA in place of GQA attention where the config has one,
+and so are the cross-attention of an encoder-decoder's decoder layers
+and the encoder tower (whisper); MoE layers raise
 ``NotImplementedError``.
+
+Decode caches are flat dicts in the same layout: each layer's cache
+stacked on the group's layer axis and keyed by the reference cache's
+path, ``layers/<g>/attn/k`` (count, B, C, Hkv, D), ``attn/v``,
+``attn/ckv`` and ``attn/k_rope`` (MLA), ``mamba/conv`` and
+``mamba/state``, ``cross_kv/0`` and ``cross_kv/1`` (an encoder-decoder's
+cross-attention keys and values). A decode step writes each layer's new
+entries through its view of the stacked buffers.
 The reference rematerialises each layer in the backward pass
 (``cfg.remat``); the port keeps the activations (a ``"W"`` layer's
 attention keeps only its q, k and v and recomputes the rest in the
@@ -79,7 +88,8 @@ def _init_layer(cfg, gen, kind: str, dtype, device,
 
     if kind in ("F", "W", "Y"):
         norm("ln_attn")
-        for k, v in L.init_attention(cfg, gen, dtype, device).items():
+        init_attn = L.init_mla if cfg.mla is not None else L.init_attention
+        for k, v in init_attn(cfg, gen, dtype, device).items():
             p[f"attn/{k}"] = v
         norm("ln_mlp")
         for k, v in L.init_mlp(cfg, gen, dtype, device).items():
@@ -144,8 +154,12 @@ def _apply_layer(cfg, p, x, positions, kind: str, *, prefix_len: int = 0,
     attn_kind = kind
     if kind == "Y":
         attn_kind = "W" if cfg.sliding_window else "F"
-    attn_out = L.attention_block(cfg, sub(p, "attn"), h_in, positions,
-                                 kind=attn_kind, prefix_len=prefix_len)
+    if cfg.mla is not None:
+        attn_out = L.mla_block(cfg, sub(p, "attn"), h_in, positions,
+                               prefix_len=prefix_len)
+    else:
+        attn_out = L.attention_block(cfg, sub(p, "attn"), h_in, positions,
+                                     kind=attn_kind, prefix_len=prefix_len)
     if kind == "Y":
         # Hymba: attention and mamba heads in parallel on the same input
         mamba_out = L.mamba_block(cfg, sub(p, "mamba"), h_in)
@@ -182,6 +196,104 @@ def apply_stack(cfg, params, x, positions, *, prefix_len: int = 0,
             x = _apply_layer(cfg, p, x, positions, g.kind,
                              prefix_len=prefix_len, enc_out=enc_out)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def _decode_layer(cfg, p, x, cache, pos, kind: str, rope):
+    """One-token decode of one layer, x (B, 1, E) at ``pos`` (B,); writes
+    the layer's ``cache`` (its flat dict of views) in place. ``rope`` is
+    the step's RoPE table, shared by the layers. A ``"Y"`` layer's
+    attention cache is a ``"W"`` ring buffer when the config has a
+    window; a decoder layer attends to its cached ``cross_kv`` (no RoPE,
+    the "full" mask) after its self-attention."""
+    h_in = L.apply_norm(cfg, x, sub(p, "ln_attn"))
+    if kind == "M":
+        return x + L.mamba_decode(cfg, sub(p, "mamba"), h_in,
+                                  sub(cache, "mamba"), pos)
+    if kind == "Y":
+        attn_out = L.attention_decode(
+            cfg, sub(p, "attn"), h_in, sub(cache, "attn"), pos,
+            kind="W" if cfg.sliding_window else "F", rope=rope)
+        mamba_out = L.mamba_decode(cfg, sub(p, "mamba"), h_in,
+                                   sub(cache, "mamba"), pos)
+        x = x + 0.5 * (attn_out + mamba_out)
+    else:
+        if cfg.mla is not None:
+            x = x + L.mla_decode(cfg, sub(p, "attn"), h_in,
+                                 sub(cache, "attn"), pos, rope=rope)
+        else:
+            x = x + L.attention_decode(cfg, sub(p, "attn"), h_in,
+                                       sub(cache, "attn"), pos, kind=kind,
+                                       rope=rope)
+        if "cross_kv/0" in cache:
+            hc = L.apply_norm(cfg, x, sub(p, "ln_cross"))
+            b, h, d = x.shape[0], cfg.num_heads, cfg.head_dim
+            q = (hc @ p["cross/wq"]).reshape(b, 1, h, d)
+            out = L.dense_attention(q, cache["cross_kv/0"],
+                                    cache["cross_kv/1"], mask_kind="full")
+            x = x + out.reshape(b, 1, h * d) @ p["cross/wo"]
+    h2 = L.apply_norm(cfg, x, sub(p, "ln_mlp"))
+    return x + L.mlp_block(cfg, sub(p, "mlp"), h2)
+
+
+def _init_layer_cache(cfg, g: LayerGroup, batch: int, seq_len: int, dtype,
+                      device) -> Dict[str, torch.Tensor]:
+    """One layer's zero cache, keyed by the reference's paths."""
+    cache: Dict[str, torch.Tensor] = {}
+
+    def put(name, leaves):
+        cache.update({f"{name}/{k}": v for k, v in leaves.items()})
+
+    if g.kind in ("F", "W"):
+        if cfg.mla is not None:
+            put("attn", L.init_mla_cache(cfg, batch, seq_len, dtype, device))
+        else:
+            put("attn", L.init_attention_cache(cfg, batch, seq_len, dtype,
+                                               g.kind, device))
+    if g.kind == "Y":
+        put("attn", L.init_attention_cache(
+            cfg, batch, seq_len, dtype, "W" if cfg.sliding_window else "F",
+            device))
+    if g.kind in ("M", "Y"):
+        put("mamba", L.init_mamba_cache(cfg, batch, dtype, device))
+    if g.has_cross:
+        shape = (batch, cfg.encoder.num_frames, cfg.num_kv_heads,
+                 cfg.head_dim)
+        put("cross_kv", {i: torch.zeros(shape, dtype=dtype, device=device)
+                         for i in ("0", "1")})
+    return cache
+
+
+def init_cache(cfg, batch: int, seq_len: int, dtype,
+               device) -> Dict[str, torch.Tensor]:
+    """Zero decode caches of every group, each layer's stacked on the
+    group's layer axis: ``layers/<g>/<cache path>`` (count, ...)."""
+    out: Dict[str, torch.Tensor] = {}
+    for gi, g in enumerate(layer_groups(cfg)):
+        for k, v in _init_layer_cache(cfg, g, batch, seq_len, dtype,
+                                      device).items():
+            out[f"layers/{gi}/{k}"] = torch.zeros(
+                (g.count,) + tuple(v.shape), dtype=v.dtype, device=device)
+    return out
+
+
+def decode_stack(cfg, params, x, cache, pos):
+    """One-token decode through all groups; returns x and writes each
+    layer's entries of ``cache`` in place (through ``torch.unbind``'s
+    views of the stacked buffers). The RoPE table at ``pos`` is built
+    once a step for every attention layer (at MLA's rope dim, or the
+    head dim)."""
+    dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.head_dim
+    rope = L.rope_table(pos[:, None], dim, cfg.rope_theta)
+    for gi, g in enumerate(layer_groups(cfg)):
+        prefix = f"layers/{gi}"
+        for p, c in zip(_layers(params, prefix), _layers(cache, prefix)):
+            x = _decode_layer(cfg, p, x, c, pos, g.kind, rope)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ init carried across by ``params_from_jax``); ``loss_fn`` and its gradient
 cross-entropy and the vocab-chunked one. Every ported architecture's
 reduced config inits on the CPU with the analytic count, which equals
 the reference's at the published and reduced configs; the architectures
-the port refuses are exactly the reference's MLA and MoE ones.
+the port refuses are exactly the reference's MoE ones (MLA is ported
+with minicpm3-4b).
 """
 import dataclasses
 from functools import partial
@@ -28,7 +29,7 @@ from repro_torch.models import model as TM
 
 RTOL = 1e-4
 PORTED = ("llama3.2-3b", "gemma3-1b", "mamba2-2.7b", "hymba-1.5b",
-          "minitron-4b", "paligemma-3b", "whisper-tiny")
+          "minitron-4b", "paligemma-3b", "whisper-tiny", "minicpm3-4b")
 
 
 @pytest.fixture(scope="module")
@@ -97,12 +98,15 @@ def test_params_from_jax_keeps_bf16_bits():
 
 def test_unported_model_parts_raise():
     # "M" and "Y" layers are ported (tests/test_torch_mamba.py,
-    # tests/test_torch_hymba.py); MoE models and minicpm3-4b are not
+    # tests/test_torch_hymba.py), and MLA with minicpm3-4b
+    # (tests/test_torch_mla.py); MoE models are not
     cfg = dataclasses.replace(get_reduced("llama3.2-3b"), moe=object())
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TM.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("minicpm3-4b")
+        TM.init_cache(cfg, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        get_config("qwen2-moe-a2.7b")
 
 
 @pytest.fixture
@@ -134,11 +138,11 @@ def test_param_count_matches_jax(arch, preset):
 
 
 def test_not_ported_is_exactly_mla_and_moe():
-    mla_moe = {a for a in ARCH_IDS
-               if jax_get_config(a).mla is not None
-               or jax_get_config(a).moe is not None}
-    assert set(TC._NOT_PORTED) == mla_moe
-    assert set(TC._ARCHS) == set(PORTED) == set(ARCH_IDS) - mla_moe
+    # MLA alone is ported (minicpm3-4b); deepseek-v3 pairs it with MoE
+    moe = {a for a in ARCH_IDS if jax_get_config(a).moe is not None}
+    assert "deepseek-v3-671b" in moe and "minicpm3-4b" not in moe
+    assert set(TC._NOT_PORTED) == moe
+    assert set(TC._ARCHS) == set(PORTED) == set(ARCH_IDS) - moe
     for arch in TC._NOT_PORTED:
         with pytest.raises(NotImplementedError, match="not ported yet"):
             get_reduced(arch)

@@ -33,7 +33,8 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "local_loop_probe.py",
     ROOT / "tools" / "heavy_ball_kink_probe.py",
-    ROOT / "tools" / "update_probe.py"]
+    ROOT / "tools" / "update_probe.py",
+    ROOT / "tools" / "profile_cost_probe.py"]
 
 no_cuda = pytest.mark.skipif(torch.cuda.is_available(),
                              reason="checks the behaviour without CUDA")
