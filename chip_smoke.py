@@ -8,8 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each of which raises on failure (the script then exits non-zero):
 
   1. environment: card name and power limit, torch/CUDA versions, TF32 off
-  2. build: the three CUDA sources from src/repro_torch/kernels/**/csrc
-     into build/kernels/, the nvcc processes started together; B5's
+  2. build: the four CUDA sources from src/repro_torch/kernels/**/csrc
+     into build/kernels/, the nvcc processes started together (the
+     script goes on once all but local_loop.cu, the slowest, are built,
+     and waits for it before phase 5, which runs after phase 12); B5's
      registers, spills and shared memory a block (no spills allowed in
      its tensor-core instantiations)
   3. the fused corrected-step kernel (B1) against its plain version: a
@@ -33,12 +35,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      SCAFFOLD round on the card vs the CPU
   10. the gemma3-1b slice: published widths, all 26 layers in bf16, seq
      2048, SCAFFOLD with every "W" layer's attention through B5 and the
-     local steps through B1; launch counts, round times, memory and a
-     profiled round
+     local steps through B1 (2 rounds); launch counts, round times,
+     memory and a profiled round
   11. the LM slice: llama3.2-3b widths in bf16, SCAFFOLD through the fused
      update kernel, with its launch count, kernel timing, memory and a
      profiled round
-  12. the LM momentum path: the same widths at 14 layers, local
+  12. the LM momentum path: the same widths at 10 layers, local
      heavy-ball through B2, the slot rows carried across rounds in the
      solver store, B2 timed at all 28
   13. the quadratics slice: the K-step kernel path and the per-step fused
@@ -51,7 +53,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      adam, fedprox and the head_only update space fall back to the
      per-step path by the reference's reasons (no B3/B4 launch)
   16. the paper's Table 5 (EMNIST-like, the 784-256-62 MLP, N 50, S 10,
-     K 25, similarity 0 and 10), its first 20 rounds through the sync
+     K 25, similarity 0 and 10), its first 15 rounds through the sync
      host loop: SGD, FedAvg and SCAFFOLD, SCAFFOLD's local steps through
      B1; best test accuracy, seconds a round, B1's launches, a profiled
      round; B1 timed at the MLP tree
@@ -108,8 +110,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      memmap backends and the dense scanned engine bitwise equal through
      B3 and B4; s/round, each trainer's device and host memory
   28. the pipelined host loop bitwise the synchronous one: gemma3-1b at
-     phase 10's settings (B5, B1) at depth 1, and Table 5's EMNIST at
-     depth 2 with the stale-row repair counted
+     phase 10's settings (B5, B1) at depth 1, and Table 5's EMNIST (6
+     rounds) at depth 2 with the stale-row repair counted
   29. the async engine's degenerate limit (M = K = S, always_on,
      constant) bitwise the sync host loop, launches equal: Table 5's
      MLP through B1 (5 aggregations) and scaffold_m + int8_ef + server
@@ -118,7 +120,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
      through B5 and B1 (2), its peak device memory against the plan
   30. Table 5's MLP through the async engine and B1 under stragglers
      (lognormal sigma 1.5, 20 % dropout, M 5 of K 10, polynomial 0.5),
-     40 aggregations: best test accuracy, s/aggregation, the staleness
+     20 aggregations: best test accuracy, s/aggregation, the staleness
      histogram, dropped updates, virtual time against the sync loop's,
      a profiled aggregation's busy share; the tiered store (dense and
      memmap backends) and a checkpoint with updates in flight and
@@ -135,12 +137,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      2048: B5 on every layer's attention (384 launches in 3 rounds), B1
      on the two dtype groups (bf16 weights; fp32 ``a_log``, ``dt_bias``,
      ``d_skip``: 24 launches), s/round and peak memory against
-     ``_lm_plan``, a profiled round, B1 timed on the mixed tree; LoRA r 8
+     ``_lm_plan``, B1 timed on the mixed tree; LoRA r 8
      through ``launch.train.main --arch hymba-1.5b --preset full``
   34. mamba2-2.7b at its published widths, all 64 "M" layers in bf16, at
      the longest sequence whose plan fits (seq cut, not depth): B1 on its
-     two dtype groups (24 launches, no B5), s/round and peak memory
-     against the plan, a profiled round
+     two dtype groups (16 launches in 2 rounds, no B5), s/round and peak
+     memory against the plan
   35. the reduced fp32 minitron (untied embeddings, through the
      trainer), paligemma (16 patches under the prefix mask) and whisper
      (encoder over 64 frames, cross-attention), one SCAFFOLD round each
@@ -151,30 +153,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
      bf16, seq 2048: ``head_only`` on ``unembed*,ln_final*`` at all 32
      layers through ``launch.train.main`` (B1 8), then the full space
      through the trainer at the depth ``_lm_plan`` admits, logged as a
-     cut (B1 12)
+     cut (B1 8 in 2 rounds)
   37. paligemma-3b at its published widths, 18 layers, bf16, 256
      projected patches + 1792 text tokens (the dense prefix-LM path),
      the full space through ``federated_round``: B1 12, no B5
   38. gemma3-1b at 26 layers, seq 4096: the 22 "W" layers through B5
      (264 launches in 3 rounds), the 4 "F" layers through
-     ``flash_attention``, B1 12; a profiled round
+     ``flash_attention``, B1 12
   39. whisper-tiny at its published widths (4 + 4 layers, fp32), 1500
      frames and 448 text tokens, batch 4, the full space through
      ``federated_round``: B1 12 on the one fp32 group
   40. every ported family's reduced fp32 config (llama, gemma3 and hymba
      past their windows, mamba2, minitron, whisper, paligemma,
-     minicpm3): ``decode_step`` on the card against the CPU within 1e-4
-     and against ``prefill`` on the card within 5e-4; B5 on the
-     prefills' band layers, no kernel in decode
+     minicpm3, qwen2-moe and deepseek-v3 under the ragged dispatch):
+     ``decode_step`` on the card against the CPU within 1e-4 and
+     against ``prefill`` on the card within 5e-4; B5 on the prefills'
+     band layers, no kernel of B1-B5 in decode, the fp32 grouped product
+     G1 3 a MoE layer a step; the MoE pair's gshard federated round on
+     the card against the CPU (B1), the ragged block against gshard at
+     capacity factor 8 on the card, and G1 against its plain version
+     (forward and both gradients), timed beside fp32
+     ``torch._grouped_mm``
   41. gemma3-1b at its published widths, 26 layers, bf16: ``prefill`` at
-     batch 2 x 1024 (B5 22, one a "W" layer), the same tokens through
-     ``decode_step`` (the 512-slot rings wrap), the last 64 positions
-     within ``BF16_DECODE_BOUND`` of the prefill; ``generate`` 128 new
-     tokens: ms a step, tokens/s, peak memory
+     batch 2 x 1024 (B5 22, one a "W" layer), the first 576 of the same
+     tokens through ``decode_step`` (the 512-slot rings wrap), the last
+     64 decoded positions within ``BF16_DECODE_BOUND`` of the prefill;
+     ``generate`` 64 new tokens: ms a step, tokens/s, peak memory
   42. ``repro_torch.launch.serve.main --preset full --batch 8
-     --prompt-len 128 --max-new 128`` for llama3.2-3b, minitron-4b,
+     --prompt-len 64 --max-new 32`` for llama3.2-3b, minitron-4b,
      mamba2-2.7b and hymba-1.5b; mamba2 and hymba in fp32, prefill (the
-     chunked SSD) against decode (its recurrence) at 256 tokens
+     chunked SSD) against decode (its recurrence) at 64 tokens
   43. phase 19's LoRA checkpoint through ``serve.main --checkpoint``:
      "serving merged checkpoint", the params bitwise
      ``load_serving_params``'; a mismatched ``--arch`` refused
@@ -183,10 +191,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
      paligemma-3b: 16 decode steps at its published widths, finite
   45. minicpm3-4b (MLA) through ``launch.train.main``: LoRA r 8 at 62
      layers at the sequence the plan admits (B1); the full space at the
-     depth ``_lm_plan`` admits (B1), the trained model's absorbed MLA
-     decode against its prefill at 256 tokens
+     depth ``_lm_plan`` admits, at most 24 layers (B1), the trained
+     model's absorbed MLA
+     decode against its prefill at 128 tokens
+  46. qwen2-moe-a2.7b at its published widths, bf16, seq 2048 (the
+     ragged dispatch, ``torch._grouped_mm``): LoRA r 8 on the default
+     targets (4-D expert adapters) through ``launch.train.main`` at the
+     depth ``_lm_plan`` admits (B1 8); the full space through the
+     trainer at its cut depth (B1 8), a profiled round, B1 timed on
+     its tree
+  47. ``serve.main --arch qwen2-moe-a2.7b --preset full --batch 8
+     --prompt-len 128 --max-new 64`` at 24 layers; phase 46's LoRA
+     model merged, its decode against its prefill at 256 tokens in bf16
+     within 0.1 at every position, the decode's routing pinned to the
+     prefill's (the flips it would make counted)
+  48. deepseek-v3-671b at its published widths cut to 3 dense + 1 MoE
+     layer (256 experts, top 8, MLA), bf16, LoRA r 8 without the routed
+     experts through ``launch.train.main`` (B1 8), its MLA + MoE decode
+     against its prefill as in 47
 
-Every decode of phases 40-45 runs under
+Every decode of phases 40-48 runs under
 ``torch.cuda.set_sync_debug_mode("error")``: a host sync fails it.
 Every LM phase logs its memory plan (``_lm_plan``) against its measured
 peak. A profiled round records the CUDA activity alone; the profiler's
@@ -240,19 +264,30 @@ B3_FLIPPED_BOUND = 8.2e-4
 # stream at d 3000, in three column chunks)
 LOOP_SHAPES = tuple((d, K, bsz) for d in (20, 1000, 1024) for K in (1, 10)
                     for bsz in (1, 2)) + ((3000, 2, 2),)
+# the kernel source whose nvcc takes longest (45-49 s alone on the H100
+# machine): it builds alongside the phases before B3's check
+SLOW_BUILD = "local_loop"
 B1_REPLACES = "src/repro/kernels/scaffold_update/kernel.py:46"
 B2_REPLACES = "src/repro/kernels/scaffold_update/kernel.py:73"
 B3_REPLACES = "src/repro/kernels/scaffold_update/megakernel.py:108"
 B4_REPLACES = "src/repro/kernels/scaffold_update/megakernel.py:141"
 B5_REPLACES = "src/repro/kernels/swa_attention/kernel.py:70"
+# the fp32 grouped product of the routed experts stands where the JAX
+# package's moe_block_ragged calls lax.ragged_dot (XLA, not a Pallas
+# kernel)
+G1_REPLACES = "src/repro/models/layers.py:545"
 SOURCES = {"update": "src/repro_torch/kernels/scaffold_update/csrc/"
                      "scaffold_update.cu",
            "loop": "src/repro_torch/kernels/scaffold_update/csrc/"
                    "local_loop.cu",
            "swa": "src/repro_torch/kernels/swa_attention/csrc/"
-                  "swa_attention.cu"}
-# H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+                  "swa_attention.cu",
+           "grouped": "src/repro_torch/kernels/grouped_mm/csrc/"
+                      "grouped_mm.cu"}
+# H100 SXM dense bf16 tensor-core rate, and fp32 outside the tensor cores
+# (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 # B5 vs plain in fp32: max abs error (the JAX package's own kernel bound,
 # tests/test_kernels.py); in bf16 the bound is 1 bf16 ulp of the plain
 # element plus this (both round an fp32 result once, and the two fp32
@@ -296,21 +331,24 @@ B12_CASES = {
 def reset_launches() -> None:
     """Set every kernel's launch count to 0 and forget the K-step loops'
     launch plans."""
+    from repro_torch.kernels.grouped_mm import ops as gmm_ops
     from repro_torch.kernels.scaffold_update import megakernel as mk
     from repro_torch.kernels.scaffold_update import ops
     from repro_torch.kernels.swa_attention import ops as swa_ops
 
     ops.reset_launches()
     swa_ops.reset_launches()
+    gmm_ops.reset_launches()
     mk.reset_plans()
 
 
 def launches() -> dict:
     """Every kernel's launch count since the last reset, by name."""
+    from repro_torch.kernels.grouped_mm import ops as gmm_ops
     from repro_torch.kernels.scaffold_update import ops
     from repro_torch.kernels.swa_attention import ops as swa_ops
 
-    return {**ops.LAUNCHES, **swa_ops.LAUNCHES}
+    return {**ops.LAUNCHES, **swa_ops.LAUNCHES, **gmm_ops.LAUNCHES}
 
 
 def log(msg: str) -> None:
@@ -466,20 +504,31 @@ def phase_environment():
 
 
 def phase_build():
-    """Phase 2: build every kernel source, nvcc processes in parallel."""
+    """Phase 2: build every kernel source, the nvcc processes started
+    together. The script goes on once all but ``SLOW_BUILD`` are built;
+    that one (B3/B4's source, the longest compile) builds alongside the
+    phases that do not run it, and ``phase_build_wait`` waits for it
+    before B3's check. Returns what ``phase_build_wait`` takes."""
+    import threading
+
     from repro_torch.kernels import build
 
-    secs = build.build()
-    log(f"build: {sorted(build.SOURCES)} in {secs:.1f} s wall, into "
-        f"{build.BUILD_DIR}")
-    logs = {name: build.ptxas_log(name) for name in sorted(build.SOURCES)}
-    for name, out in logs.items():
-        used = [ln.strip() for ln in out.splitlines() if "Used" in ln]
-        log(f"  ptxas {name}: {len(used)} kernels, e.g. "
-            f"{used[0] if used else 'no ptxas report'}")
-    OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "ptxas.txt").write_text("".join(
-        f"== {name}\n{out}" for name, out in logs.items()))
+    t0 = time.perf_counter()
+    errors = []
+
+    def slow():
+        try:
+            build.build([SLOW_BUILD])
+        except RuntimeError as e:
+            errors.append(e)
+
+    worker = threading.Thread(target=slow, daemon=True)
+    worker.start()
+    rest = sorted(n for n in build.SOURCES if n != SLOW_BUILD)
+    build.build(rest)
+    log(f"build: {rest} in {time.perf_counter() - t0:.1f} s wall "
+        f"({SLOW_BUILD} building alongside), into {build.BUILD_DIR}")
+    logs = _log_ptxas(rest)
     smem = build.load("swa_attention").swa_attention_smem_bytes
     report = ptxas_report(logs["swa_attention"])
     spilled = []
@@ -496,6 +545,35 @@ def phase_build():
         raise AssertionError(f"B5 ptxas report: functions {sorted(report)}")
     if spilled:
         raise AssertionError(f"B5 tensor-core kernels spill: {spilled}")
+    return worker, errors, t0
+
+
+def phase_build_wait(pending):
+    """The end of phase 2: wait for ``SLOW_BUILD``'s nvcc (raises with
+    its output if it failed) and log its ptxas report."""
+    worker, errors, t0 = pending
+    worker.join()
+    if errors:
+        raise errors[0]
+    log(f"build: {SLOW_BUILD} built {time.perf_counter() - t0:.1f} s after "
+        f"the build began")
+    _log_ptxas([SLOW_BUILD])
+
+
+def _log_ptxas(names) -> dict:
+    """Log each built library's kernel count and first register line,
+    append its ptxas report to ``OUT/ptxas.txt``; returns the reports."""
+    from repro_torch.kernels import build
+
+    logs = {name: build.ptxas_log(name) for name in names}
+    for name, out in logs.items():
+        used = [ln.strip() for ln in out.splitlines() if "Used" in ln]
+        log(f"  ptxas {name}: {len(used)} kernels, e.g. "
+            f"{used[0] if used else 'no ptxas report'}")
+    OUT.mkdir(parents=True, exist_ok=True)
+    with open(OUT / "ptxas.txt", "a") as f:
+        f.write("".join(f"== {name}\n{out}" for name, out in logs.items()))
+    return logs
 
 
 def ptxas_report(out: str) -> dict:
@@ -1105,16 +1183,47 @@ def _ssm_token_bytes(cfg, seq_len: int) -> int:
             + 8 * 4 * di + 3 * 4 * _ssm_chunk(cfg, seq_len) * h)
 
 
-def _tree_bytes(cfg) -> int:
-    """Bytes of cfg's parameter tree, each leaf in its own dtype (hymba's
-    and mamba2's fp32 SSD leaves in a bf16 model, whisper's fp32 tree),
-    from the tree built on the meta device (nothing allocated)."""
+def _meta_tree(cfg) -> dict:
+    """cfg's parameter tree on the meta device (nothing allocated)."""
     import torch
 
     from repro_torch.models.model import param_tree
 
-    tree = param_tree(cfg, None, torch.device("meta"))
-    return sum(v.numel() * v.element_size() for v in tree.values())
+    return param_tree(cfg, None, torch.device("meta"))
+
+
+def _tree_bytes(cfg) -> int:
+    """Bytes of cfg's parameter tree, each leaf in its own dtype (hymba's
+    and mamba2's fp32 SSD leaves in a bf16 model, whisper's fp32 tree),
+    from the tree built on the meta device (nothing allocated)."""
+    return sum(v.numel() * v.element_size()
+               for v in _meta_tree(cfg).values())
+
+
+def _moe_token_bytes(cfg, tokens: int) -> int:
+    """Activation bytes an MoE layer keeps for the backward pass, per
+    token of a forward over ``tokens`` tokens: the router's fp32 input,
+    logits and probabilities and its int64 one-hot (k x n_experts); the
+    shared experts' four products; under the ragged dispatch the k
+    sorted copies of the token, the experts' four products of width f
+    and the combine's un-sorted, weighted outputs; under gshard each
+    token's share of its group's (g, n_experts, C) dispatch and combine
+    tensors (fp32 and cast) and of the experts' inputs and products at
+    their C slots. Compute dtype unless stated."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import _dtype
+
+    mo = cfg.moe
+    ab = _dtype(cfg.compute_dtype).itemsize
+    e, f, n, k = cfg.d_model, mo.expert_d_ff, mo.num_experts, mo.top_k
+    out = (4 * e + 2 * 4 * n + 8 * k * n
+           + 4 * mo.shared_d_ff * mo.num_shared_experts * ab)
+    if cfg.moe_impl == "gshard":
+        g, cap = L._gshard_groups(cfg, tokens, mo.capacity_factor,
+                                  mo.gshard_group_size)
+        return out + n * cap * (8 + 2 * ab) + n * cap * (2 * e + 4 * f) * \
+            ab // g
+    return out + ((3 * k + 1) * e + 4 * k * f) * ab
 
 
 def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
@@ -1136,11 +1245,17 @@ def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
     when the embeddings are untied; the CE's vocab chunks, or its full
     logits without chunks; the largest stacked leaf's gradient once).
 
-    ``subset`` = (target params, delta-tree bytes) plans an update space
-    that trains a subset instead: the frozen base, the targets merged and
-    their gradients (2 target-sized trees), the merge's and the
-    projection's temporaries of the largest target (3), and the 8 trees
-    above at the delta tree's size. ``stack_grads`` False plans targets
+    An MoE model's layers keep ``_moe_token_bytes`` a token in place of
+    the MLP's (a dense layer's MLP at ``dense_d_ff`` once
+    ``first_dense_layers`` is set), and its largest stacked leaf is read
+    off the meta tree (the routed experts' (L, n_experts, d, f)).
+
+    ``subset`` = (target params, delta-tree bytes[, the largest target's
+    bytes]) plans an update space that trains a subset instead: the
+    frozen base, the targets merged and their gradients (2 target-sized
+    trees), the merge's and the projection's temporaries of the largest
+    target (3), and the 8 trees above at the delta tree's size.
+    ``stack_grads`` False plans targets
     that all sit above the layers (``unembed``, ``ln_final``): the
     layers then keep no activations for a backward pass.
 
@@ -1162,6 +1277,12 @@ def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
     n_full = pattern.count("F")
     n_attn = sum(k != "M" for k in pattern)
     act = n_attn * t * (10 * e + 5 * f) * ab
+    if cfg.moe is not None:
+        mo = cfg.moe
+        n_moe = sum(cfg.layer_uses_moe(i) for i in range(cfg.num_layers))
+        dense_f = mo.dense_d_ff if mo.first_dense_layers else f
+        act = n_attn * t * 10 * e * ab + (n_attn - n_moe) * t * 5 * \
+            dense_f * ab + n_moe * t * _moe_token_bytes(cfg, t)
     if cfg.mla is not None:
         # MLA's own per token: q (pre-split and whole), the expanded keys
         # (nope and whole), v, k_nope's up-projection, the two latents
@@ -1187,13 +1308,26 @@ def _lm_plan(cfg, seq_len: int, local_batch: int, slot_bytes: int = 0,
     if not stack_grads:
         act = 0
     largest = pb * cfg.num_layers * e * max(f, _ssm_proj_width(cfg))
+    if cfg.moe is not None:
+        largest = max(v.numel() * v.element_size()
+                      for k, v in _meta_tree(cfg).items()
+                      if k.startswith("layers/"))
     tables = 1 if cfg.tie_embeddings else 2
     temps = 2 * pb * tables * cfg.vocab_size * e + largest
     temps += (4 * t * cfg.loss_chunk_vocab * 4 if cfg.loss_chunk_vocab
               else 3 * t * cfg.vocab_size * 4)
     if subset is not None:
-        n_t, delta_bytes = subset
+        n_t, delta_bytes = subset[:2]
+        if len(subset) > 2:
+            temps += subset[2] - largest
+            largest = subset[2]
         trees = tree + 2 * pb * n_t + 3 * largest + 8 * delta_bytes
+        if n_full and seq_len <= L.FLASH_THRESHOLD:
+            # the entry point's evaluation after a round, when the
+            # steps' activations are gone: one dense "F" layer's fp32
+            # scores and softmax and its probabilities in v's dtype over
+            # EVAL_ROWS rows at a time
+            act = max(act, EVAL_ROWS * h * seq_len ** 2 * (8 + ab))
         if pending:
             trees += 2 * delta_bytes + pending * 2 * delta_bytes
         return n, tree, trees + act + temps
@@ -1210,9 +1344,11 @@ def _plan_vs_peak(tag: str, plan: int, peak: int) -> None:
 
 
 def _lm_fit(spec, seq_len: int, slot_bytes: int = 0,
-            arch: str = "llama3.2-3b", chunk: int = 16032):
+            arch: str = "llama3.2-3b", chunk: int = 16032,
+            max_layers: int = 0):
     """``arch`` at its published widths, CE over vocab chunks of
-    ``chunk``, cut in depth (from its full depth down) until the device
+    ``chunk``, cut in depth (from its full depth, or ``max_layers``
+    when set, down) until the device
     plan fits LM_MEMORY_LIMIT and the host rows (the store's N and the
     gathered cohort's S, each a c_i tree and a slot) fit
     HOST_MEMORY_LIMIT. Logs the reckoning; returns ``(cfg, n, tree
@@ -1221,7 +1357,7 @@ def _lm_fit(spec, seq_len: int, slot_bytes: int = 0,
 
     base = dataclasses.replace(get_config(arch), loss_chunk_vocab=chunk)
     rows = spec.num_clients + spec.num_sampled
-    depth = base.num_layers
+    depth = min(base.num_layers, max_layers or base.num_layers)
     while True:
         cfg = dataclasses.replace(base, num_layers=depth)
         n, tree, peak = _lm_plan(cfg, seq_len, spec.local_batch, slot_bytes)
@@ -1370,12 +1506,13 @@ def phase_lm_full(result):
     from repro_torch.core import megakernel_incompatibility
     from repro_torch.kernels.scaffold_update import ops, ref
 
-    seq_len, rounds = 256, 3
+    seq_len, rounds = 256, 2
     spec = FedRoundSpec(algorithm="scaffold", num_clients=4, num_sampled=2,
                         local_steps=2, local_batch=1, eta_l=0.01,
                         strategy="client_sequential")
     cfg, n, tree = _lm_fit(spec, seq_len)
     depth = cfg.num_layers
+    log(f"reduced: lm rounds 3 -> {rounds} (the script's time)")
     t0 = time.perf_counter()
     tr = _lm_trainer(cfg, spec, seq_len)
     torch.cuda.synchronize()
@@ -1474,10 +1611,11 @@ def phase_gemma_full(result):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import FedRoundSpec
 
-    seq_len, rounds = 2048, 3
+    seq_len, rounds = 2048, 2
     spec = FedRoundSpec(algorithm="scaffold", num_clients=4, num_sampled=2,
                         local_steps=2, local_batch=1, eta_l=0.01,
                         strategy="client_sequential")
+    log(f"reduced: gemma rounds 3 -> {rounds} (the script's time)")
     cfg, _, _ = _lm_fit(spec, seq_len, arch="gemma3-1b",
                         chunk=get_config("gemma3-1b").vocab_size // 16)
     if cfg.num_layers != get_config("gemma3-1b").num_layers:
@@ -1532,8 +1670,8 @@ def phase_gemma_full(result):
 # the LM momentum trainer's depth: its rounds are host-bound on the slot
 # and c_i rows (77 GB at the plan's 27 layers, ~25 s a round on an H100
 # machine); cut to keep the script in its time limit as the serving
-# phases came
-LM_MOMENTUM_LAYERS = 14
+# phases came, and further as the MoE phases came
+LM_MOMENTUM_LAYERS = 10
 
 
 def phase_lm_momentum(result):
@@ -1677,21 +1815,46 @@ LORA_RANK = 8
 HEAD_TARGETS = "embed,ln_final*"
 
 
+@contextlib.contextmanager
+def _depth_cut(layers: int):
+    """``repro_torch.launch.train`` (and ``serve``) build the preset
+    config cut to ``layers`` layers within the block."""
+    from repro_torch.launch import train
+
+    preset = train.preset_config
+    train.preset_config = lambda arch, p: dataclasses.replace(
+        preset(arch, p), num_layers=layers)
+    try:
+        yield
+    finally:
+        train.preset_config = preset
+
+
+def _lora_sizes(cfg, rank: int, targets: str = ""):
+    """(params the LoRA targets hold, elements of the delta tree, the
+    largest target's bytes) of cfg at ``targets`` (the defaults when
+    empty), from the port's own target selection on the meta tree: a
+    target (..., in, out) carries A (..., in, r) and B (..., r, out)."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import update_space as U
+
+    spec = SimpleNamespace(update_targets=targets, lora_rank=rank)
+    hits = [v for _, v in U.get_update_space("lora").targets(
+        spec, _meta_tree(cfg))]
+    n_t = sum(v.numel() for v in hits)
+    n_delta = sum(v.numel() // v.shape[-1] * rank
+                  + v.numel() // v.shape[-2] * rank for v in hits)
+    return n_t, n_delta, max(v.numel() * v.element_size() for v in hits)
+
+
 def _space_sizes(cfg, space: str, rank: int = 0):
     """(params the space's targets hold, elements of its delta tree) at
-    cfg: ``lora`` on the seven matmul weights of every layer (MLA's
-    layers: ``wo`` and the MLP's three), A (in, r) and B (r, out) each;
-    ``head_only`` on ``embed`` and ``ln_final``."""
-    e, f = cfg.d_model, cfg.d_ff
-    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    cfg: ``lora`` on the default targets (``_lora_sizes``); ``head_only``
+    on ``embed`` and ``ln_final``."""
     if space == "lora":
-        shapes = ((e, q), (e, kv), (e, kv), (q, e), (e, f), (e, f), (f, e))
-        if cfg.mla is not None:  # wo and the MLP; not MLA's factored ones
-            shapes = ((cfg.num_heads * cfg.mla.v_head_dim, e), (e, f), (e, f),
-                      (f, e))
-        return (cfg.num_layers * sum(i * o for i, o in shapes),
-                cfg.num_layers * rank * sum(i + o for i, o in shapes))
-    n = cfg.vocab_size * e + e
+        return _lora_sizes(cfg, rank)[:2]
+    n = cfg.vocab_size * cfg.d_model + cfg.d_model
     return n, n
 
 
@@ -2379,7 +2542,7 @@ def phase_quad_sched_adam(ds, result):
 # script in its time limit), test accuracy every 10
 EMNIST = dict(num_clients=50, samples=20_000, seed=0)
 EMNIST_ROUNDS, EMNIST_SCAN_CHUNK = 150, 5
-EMNIST_SYNC_ROUNDS, EMNIST_EVAL_EVERY = 20, 10
+EMNIST_SYNC_ROUNDS, EMNIST_EVAL_EVERY = 15, 5
 EMNIST_SPEC = dict(num_clients=50, num_sampled=10, local_steps=25, eta_l=0.3)
 # the MLP's leaves: w1 784x256, b1 256, w2 256x62, b2 62
 MLP_PARAMS = 784 * 256 + 256 + 256 * 62 + 62
@@ -2550,7 +2713,7 @@ def _time_b2_mlp(tr, spec, result):
 
 
 def phase_emnist_table5(result):
-    """Phase 16: the paper's Table 5 on the card, its first 20 rounds
+    """Phase 16: the paper's Table 5 on the card, its first 15 rounds
     through the sync host loop (phase 23 runs all 150 scanned). SGD
     (whole batch, K 1), FedAvg and SCAFFOLD at similarity 0 and 10; every
     SCAFFOLD local step through B1 (FedAvg and SGD have no correction, so
@@ -2565,7 +2728,8 @@ def phase_emnist_table5(result):
     from repro_torch.models import simple
 
     best_all = {}
-    log(f"reduced: Table 5 sync rounds 30 -> {EMNIST_SYNC_ROUNDS} (the "
+    log(f"reduced: Table 5 sync rounds 30 -> {EMNIST_SYNC_ROUNDS}, test "
+        f"accuracy every {EMNIST_EVAL_EVERY} (the "
         f"script's time limit; phase 23 runs all 150 scanned)")
     for sim in (0.0, 10.0):
         t0 = time.perf_counter()
@@ -3344,20 +3508,15 @@ def phase_gemma_scanned(result):
     seq_len, chunk, layers, rounds = 2048, base.vocab_size // 16, 2, 4
     cfg = dataclasses.replace(base, num_layers=layers,
                               loss_chunk_vocab=chunk)
-    preset = train.preset_config
-    train.preset_config = lambda arch, p: dataclasses.replace(
-        preset(arch, p), num_layers=layers)
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    try:
+    with _depth_cut(layers):
         t0 = time.perf_counter()
         tr = train.main(_train_argv("gemma3-1b", seq_len, rounds, chunk,
                                     "--scan-rounds", "2") + ["--log-every",
                                                              "2"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        train.preset_config = preset
     # the scanned engine's plan: the host loop's, its device store of N
     # c_i rows and the captured round's static buffers aside
     _plan_vs_peak("gemma3-1b scanned", _lm_plan(cfg, seq_len, 1)[2],
@@ -3795,24 +3954,27 @@ def phase_pipelined(result):
                             local_batch=data.local_batch_size(0.2),
                             **EMNIST_SPEC)
         runs = {}
+        log(f"reduced: pipelined table 5 rounds 10 -> "
+            f"{PIPELINED_TABLE5_ROUNDS} (the script's time)")
         for depth in (0, 2):
             tr = _mlp_trainer(spec, data, pipeline_depth=depth)
             reset_launches()
             del repaired[:]
             secs = []
-            for _ in range(10):
+            for _ in range(PIPELINED_TABLE5_ROUNDS):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 tr.run_round()
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
             n = launches()
-            want = _want_launches(scaffold_update=10 * spec.num_sampled
-                                  * spec.local_steps)
+            want = _want_launches(scaffold_update=PIPELINED_TABLE5_ROUNDS
+                                  * spec.num_sampled * spec.local_steps)
             runs[depth] = (trainer_state(tr), _history(tr))
             log(f"pipelined table 5 (N 50, S 10, K 25), depth {depth}: "
                 f"s/round " + ", ".join(f"{v:.4f}" for v in secs)
-                + f" (median of rounds 2-10 {statistics.median(secs[1:]):.4f})"
+                + f" (median of rounds 2-{PIPELINED_TABLE5_ROUNDS} "
+                f"{statistics.median(secs[1:]):.4f})"
                 f"; rows repaired {sum(repaired)} in "
                 f"{len([r for r in repaired if r])} repairs; launches {n}")
             if n != want or (depth and not sum(repaired)):
@@ -3842,7 +4004,10 @@ SYNC_KEYS = ("loss", "drift", "update_norm", "bytes_up", "bytes_down",
 # 1.5, a dispatch dies with probability 0.2
 STRAGGLER = dict(availability="lognormal",
                  availability_kwargs=dict(seed=1, sigma=1.5, dropout=0.2))
-ASYNC_AGGS, ASYNC_EVAL_EVERY, ASYNC_CHECK = 40, 10, 10
+# (40 aggregations before a cut for the script's time)
+ASYNC_AGGS, ASYNC_EVAL_EVERY, ASYNC_CHECK = 20, 10, 10
+# Table 5's rounds on the pipelined loop (10 before the same cut)
+PIPELINED_TABLE5_ROUNDS = 6
 # phase 31's engine flags: M 2 of K 3 in flight, lognormal stragglers
 ASYNC_GEMMA = ("--async-buffer", "2", "--max-inflight", "3",
                "--availability", "lognormal", "--latency-sigma", "1.0")
@@ -4373,7 +4538,8 @@ def phase_hymba_full(result):
     result.setdefault("b5_paths", {})["hymba-1.5b"] = counts["swa_attention"]
     result.setdefault("b1_paths", {})["hymba-1.5b"] = counts[
         "scaffold_update"]
-    _profile_round(tr, "hymba", kernels=("swa_fwd_wgmma", "scaffold_update"))
+    log("reduced: hymba, no profiled round (the script's time; its busy "
+        "share is in PERF.md from earlier runs)")
     result["b1"].setdefault("trees", {})["hymba mixed"] = _time_update_tree(
         "scaffold_update at the hymba-1.5b tree (bf16 and fp32 groups)",
         tr.x, tr.c, spec.eta_l)
@@ -4433,7 +4599,8 @@ def phase_mamba2_full(result):
 
     from repro_torch.configs import get_config
 
-    spec, rounds = _lm_spec(), 3
+    spec, rounds = _lm_spec(), 2
+    log("reduced: mamba2 rounds 3 -> 2 (the script's time)")
     base = dataclasses.replace(get_config("mamba2-2.7b"),
                                loss_chunk_vocab=SSM_CHUNK)
     for seq_len in MAMBA2_SEQS:
@@ -4460,12 +4627,13 @@ def phase_mamba2_full(result):
         f"nothing else; rounds 2-{rounds} mean "
         f"{statistics.mean(secs[1:]):.3f} s, peak {max(peaks) / 1e9:.2f} GB "
         f"against the plan's {plan / 1e9:.2f} GB at seq {seq_len}")
-    if groups != 2 or counts != want or want["scaffold_update"] != 24:
+    if groups != 2 or counts != want or want["scaffold_update"] != 16:
         raise AssertionError(f"mamba2: {groups} groups, launches {counts} "
                              f"!= {want}")
     result.setdefault("b1_paths", {})["mamba2-2.7b"] = counts[
         "scaffold_update"]
-    _profile_round(tr, "mamba2", kernels=("scaffold_update",))
+    log("reduced: mamba2, no profiled round (the script's time; its busy "
+        "share is in PERF.md from earlier runs)")
     tr.close()
     del tr
     torch.cuda.empty_cache()
@@ -4750,7 +4918,8 @@ def phase_minitron_full(result):
     del tr
     torch.cuda.empty_cache()
 
-    spec, rounds = _lm_spec(), 3
+    spec, rounds = _lm_spec(), 2
+    log("reduced: minitron full-space rounds 3 -> 2 (the script's time)")
     cut, _, _ = _lm_fit(spec, seq_len, arch="minitron-4b",
                         chunk=MINITRON_CHUNK)
     plan = _lm_plan(cut, seq_len, spec.local_batch)[2]
@@ -4761,7 +4930,7 @@ def phase_minitron_full(result):
     _plan_vs_peak(f"minitron at {cut.num_layers} layers", plan, max(peaks))
     log(f"minitron: rounds 2-{rounds} mean {statistics.mean(secs[1:]):.3f} "
         f"s at {cut.num_layers} of {cfg.num_layers} layers")
-    if groups != 1 or n != 12 or "unembed" not in tr.x:
+    if groups != 1 or n != 8 or "unembed" not in tr.x:
         raise AssertionError(f"minitron: {groups} groups, B1 {n}")
     result.setdefault("b1_paths", {})["minitron-4b"] = n
     torch.cuda.empty_cache()
@@ -4838,8 +5007,8 @@ def phase_gemma_long(result):
     result.setdefault("b1_paths", {})["gemma3-1b seq 4096"] = n
     result.setdefault("b5_paths", {})["gemma3-1b seq 4096"] = counts[
         "swa_attention"]
-    _profile_round(tr, "gemma long", kernels=("swa_fwd_wgmma",
-                                              "scaffold_update"))
+    log("reduced: gemma long, no profiled round (the script's time; its "
+        "busy share is in PERF.md from earlier runs)")
     tr.close()
     del tr
     torch.cuda.empty_cache()
@@ -4882,7 +5051,8 @@ def phase_whisper_full(result):
 # frames, paligemma's 16 steps
 DECODE_SMALL = (("llama3.2-3b", 32), ("gemma3-1b", 192), ("mamba2-2.7b", 64),
                 ("hymba-1.5b", 128), ("minitron-4b", 32), ("whisper-tiny", 24),
-                ("paligemma-3b", 16), ("minicpm3-4b", 32))
+                ("paligemma-3b", 16), ("minicpm3-4b", 32),
+                ("qwen2-moe-a2.7b", 32), ("deepseek-v3-671b", 32))
 # bf16 decode against the bf16 prefill, max |diff| over max |logit| at
 # the last 64 positions (phase 41, gemma3-1b; phase 45, minicpm3-4b):
 # set before the first card run at 3x the CPU's 0.032 (gemma3) and 0.027
@@ -4890,8 +5060,8 @@ DECODE_SMALL = (("llama3.2-3b", 32), ("gemma3-1b", 192), ("mamba2-2.7b", 64),
 # fault gives O(1)
 BF16_DECODE_BOUND = 0.1
 # fp32 prefill (the SSD's chunked form) against decode (its recurrence,
-# fp32 state) at 256 tokens, published widths, max |diff| over max
-# |logit| (phase 42): in bf16 the two forms' roundings differ (the
+# fp32 state) at SSM_CHECK_TOKENS tokens, published widths, max |diff|
+# over max |logit| (phase 42): in bf16 the two forms' roundings differ (the
 # chunked conv rounds each of its K products) and a random 64-layer
 # stack amplifies them to 0.71 of max |logit| at the reduced width (CPU),
 # so fp32 is held; the CPU gives 4.4e-4 at the reduced width and 64
@@ -4902,11 +5072,22 @@ SSM_DECODE_BOUND = 1e-2
 # bound)
 DECODE_CPU_BOUND, DECODE_FORWARD_BOUND = 1e-4, 5e-4
 SERVE_ARCHS = ("llama3.2-3b", "minitron-4b", "mamba2-2.7b", "hymba-1.5b")
-SERVE_ARGS = ("--preset", "full", "--batch", "8", "--prompt-len", "128",
-              "--max-new", "128")
+SERVE_ARGS = ("--preset", "full", "--batch", "8", "--prompt-len", "64",
+              "--max-new", "32")
+# phase 41's decode steps of gemma3-1b's 1024-token prefill: past the
+# 512-slot ring, so it wraps (cut from all 1024 for the script's time),
+# and its generate's new tokens (128 before the same cut)
+GEMMA_DECODE_STEPS, GEMMA_NEW_TOKENS = 576, 64
+# the tokens of phase 45's decode-against-prefill check at published
+# widths (256 before the cut for the script's time), and of
+# phase 42's fp32 SSD forms (256 before the same cut)
+DECODE_CHECK_TOKENS, SSM_CHECK_TOKENS = 128, 64
 MINICPM_CHUNK = 18362  # minicpm3-4b's CE vocab chunk (4 of its 73448)
 # the sequences phase 45 tries for LoRA at all 62 layers, longest first
 MINICPM_SEQS = (2048, 1024, 512)
+# the most layers phase 45's full space trains (the plan admitted 48 before
+# a cut for the script's time)
+MINICPM_FULL_LAYERS = 24
 
 
 @contextlib.contextmanager
@@ -4996,19 +5177,29 @@ def _peak_gb() -> float:
 def phase_decode_small(result):
     """Phase 40: every ported family's reduced fp32 config (llama, gemma3
     past its window, mamba2, hymba past its window, minitron, whisper
-    over 64 frames, paligemma, minicpm3's MLA): ``decode_step`` on the
-    card (no host sync) against the same steps on the CPU within 1e-4,
-    and against ``prefill`` on the card within 5e-4 (not paligemma: its
-    forward attends to the image prefix, which a text decode has not
-    seen); no kernel in decode, B5 on the prefill's band layers."""
+    over 64 frames, paligemma, minicpm3's MLA, qwen2-moe and deepseek's
+    MLA + MoE under the ragged dispatch, as the reference's decode test
+    runs them): ``decode_step`` on the card (no host sync) against the
+    same steps on the CPU within 1e-4, and against ``prefill`` on the
+    card within 5e-4 (not paligemma: its forward attends to the image
+    prefix, which a text decode has not seen); no kernel of B1-B5 in
+    decode, B5 on the prefill's band layers, G1 three times an MoE layer
+    a step (the ragged dispatch's fp32 grouped products). Then the MoE
+    models' gshard federated round card vs CPU, the ragged block against
+    gshard at capacity factor 8 on the card, and G1 against its plain
+    version (``_check_grouped_mm``)."""
     import torch
 
     from repro_torch.configs import get_reduced
     from repro_torch.models import model as M
 
-    b5 = 0
+    b5 = g1 = 0
     for arch, s in DECODE_SMALL:
         cfg = get_reduced(arch)
+        n_moe = 0
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe_impl="ragged")
+            n_moe = _moe_layers(cfg)
         p_cpu = M.init_params(cfg, torch.Generator().manual_seed(0),
                               device="cpu")
         p_card = {k: v.cuda() for k, v in p_cpu.items()}
@@ -5033,7 +5224,9 @@ def phase_decode_small(result):
                     M.populate_encoder_cache(cfg, p, cache, frames)
             logits[dev], _ = _decode_tokens(cfg, p, batch["tokens"].to(dev),
                                             cache)
-        _want_only(f"decode check {arch}", launches())
+        _want_only(f"decode check {arch}", launches(),
+                   grouped_mm=3 * n_moe * s)
+        g1 += 3 * n_moe * s
         err_cpu = float((logits["cuda"].cpu() - logits["cpu"]).abs().max())
         msg = (f"decode check: 2-layer fp32 {arch}, {s} decode steps on the "
                f"card (no host sync) vs the CPU: max |diff| {err_cpu:.2e} "
@@ -5046,8 +5239,9 @@ def phase_decode_small(result):
                                                batch.items()})
             n_band = _band_layers(cfg, s)
             _want_only(f"decode check {arch} prefill", launches(),
-                       swa_attention=n_band)
+                       swa_attention=n_band, grouped_mm=3 * n_moe)
             b5 += n_band
+            g1 += 3 * n_moe
             err_fwd = float((logits["cuda"] - full).abs().max())
             msg += (f"; vs prefill on the card {err_fwd:.2e} (bound "
                     f"{DECODE_FORWARD_BOUND:.0e}), B5 {n_band} in the "
@@ -5058,6 +5252,9 @@ def phase_decode_small(result):
             raise AssertionError(f"decode check {arch}: {err_cpu} "
                                  f"{err_fwd}")
     result.setdefault("b5_paths", {})["reduced prefill vs decode"] = b5
+    result.setdefault("g1_paths", {})["reduced MoE prefill vs decode"] = g1
+    _moe_small_checks(result)
+    _check_grouped_mm(result)
 
 
 def _decode_rate(tag, batch, new, steps, secs):
@@ -5067,12 +5264,15 @@ def _decode_rate(tag, batch, new, steps, secs):
         f"{_peak_gb():.2f} GB")
 
 
-def _prefill_vs_decode(tag, cfg, params, seq_len, bound, b=2, keep=None):
-    """``prefill`` of a seeded (b, seq_len) token batch against the same
-    tokens through ``decode_step`` (no host sync): max |diff| over max
-    |logit| at the last ``keep`` positions (all when None), held to
-    ``bound``; returns the launches of the prefill and of the decode, the
-    decode's host seconds and its cache."""
+def _prefill_vs_decode(tag, cfg, params, seq_len, bound, b=2, keep=None,
+                       steps=None):
+    """``prefill`` of a seeded (b, seq_len) token batch against the first
+    ``steps`` (all when None) of the same tokens through ``decode_step``
+    (no host sync; a causal model's logits at a position read no later
+    token): max |diff| over max |logit| at the last ``keep`` decoded
+    positions (all when None), held to ``bound``; returns the launches of
+    the prefill and of the decode, the decode's host seconds and its
+    cache."""
     import torch
 
     from repro_torch.models import model as M
@@ -5083,20 +5283,22 @@ def _prefill_vs_decode(tag, cfg, params, seq_len, bound, b=2, keep=None):
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    steps = steps or seq_len
     with torch.no_grad():
         full = M.prefill(cfg, params, {"tokens": tokens})
-        full = full[:, -(keep or seq_len):].float()
+        full = full[:, steps - (keep or steps):steps].float()
     torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
     pre = launches()
     reset_launches()
     cache = M.init_cache(cfg, b, seq_len)
-    dec, secs = _decode_tokens(cfg, params, tokens, cache, keep=keep)
+    dec, secs = _decode_tokens(cfg, params, tokens[:, :steps], cache,
+                               keep=keep)
     rel = float((dec.float() - full).abs().max() / full.abs().max())
     log(f"{tag}: prefill of {b} x {seq_len} tokens {t_pre:.3f} s; "
-        f"{seq_len} decode steps {secs:.3f} s ({1e3 * secs / seq_len:.2f} "
+        f"{steps} decode steps {secs:.3f} s ({1e3 * secs / steps:.2f} "
         f"ms a step); decode vs prefill max |diff| / max |logit| "
-        f"{rel:.3e} over the last {keep or seq_len} positions (bound "
+        f"{rel:.3e} over the last {keep or steps} decoded positions (bound "
         f"{bound:.0e}); launches: prefill {pre}, decode {launches()}")
     if not rel <= bound:
         raise AssertionError(f"{tag}: decode vs prefill {rel} > {bound}")
@@ -5106,11 +5308,12 @@ def _prefill_vs_decode(tag, cfg, params, seq_len, bound, b=2, keep=None):
 def phase_gemma_serve(result):
     """Phase 41: gemma3-1b at its published widths, 26 layers, bf16:
     ``prefill`` at batch 2 x 1024 tokens (each of the 22 "W" layers one
-    B5 launch: 1024 = 2 windows), then the same tokens through
-    ``decode_step`` (each "W" layer's 512-slot ring wraps), the last 64
-    positions' logits against the prefill's within BF16_DECODE_BOUND;
-    then ``generate`` 128 new tokens after an 8-token prompt: ms a
-    step, tokens/s, peak memory."""
+    B5 launch: 1024 = 2 windows), then the first ``GEMMA_DECODE_STEPS``
+    of the same tokens through ``decode_step`` (each "W" layer's 512-slot
+    ring wraps), the last 64 decoded positions' logits against the
+    prefill's within BF16_DECODE_BOUND; then ``generate``
+    GEMMA_NEW_TOKENS new tokens
+    after an 8-token prompt: ms a step, tokens/s, peak memory."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5122,14 +5325,18 @@ def phase_gemma_serve(result):
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.reset_peak_memory_stats()
     n_w = _band_layers(cfg, s)
+    log(f"reduced: gemma serve decode steps {s} -> {GEMMA_DECODE_STEPS} "
+        f"(the ring still wraps; the prefill stays at {s})")
     pre, dec, secs, cache = _prefill_vs_decode(
-        "gemma serve", cfg, params, s, BF16_DECODE_BOUND, b=b, keep=keep)
+        "gemma serve", cfg, params, s, BF16_DECODE_BOUND, b=b, keep=keep,
+        steps=GEMMA_DECODE_STEPS)
     _want_only("gemma serve prefill", pre, swa_attention=n_w)
     _want_only("gemma serve decode", dec)
     ring = tuple(cache["layers/0/attn/k"].shape)
     log(f"gemma serve: B5 {pre['swa_attention']} launches in the prefill "
         f"(want {n_w} W layers, 22); W cache {ring} (a 512-slot ring for "
-        f"{s} tokens); {b * s / secs:.1f} tokens/s through decode_step; "
+        f"{GEMMA_DECODE_STEPS} tokens); "
+        f"{b * GEMMA_DECODE_STEPS / secs:.1f} tokens/s through decode_step; "
         f"peak device memory {_peak_gb():.2f} GB")
     if n_w != 22 or ring[2] != cfg.sliding_window:
         raise AssertionError(f"gemma serve: {n_w} band layers, ring {ring}")
@@ -5143,29 +5350,35 @@ def phase_gemma_serve(result):
     reset_launches()
     t0 = time.perf_counter()
     with _guarded_generate():
-        out = serve.generate(cfg, params, prompts, 128)
+        out = serve.generate(cfg, params, prompts, GEMMA_NEW_TOKENS)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     _want_only("gemma generate", launches())
-    _decode_rate("gemma serve generate", b, 128, 8 + 128, secs)
-    if out.shape != (b, 128) or int(out.min()) < 0 or \
+    _decode_rate("gemma serve generate", b, GEMMA_NEW_TOKENS,
+                 8 + GEMMA_NEW_TOKENS, secs)
+    if out.shape != (b, GEMMA_NEW_TOKENS) or int(out.min()) < 0 or \
             int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"gemma generate: {out.shape}")
 
 
 def phase_serve_full(result):
     """Phase 42: ``repro_torch.launch.serve.main --preset full --batch 8
-    --prompt-len 128 --max-new 128`` for llama3.2-3b, minitron-4b
+    --prompt-len 64 --max-new 32`` for llama3.2-3b, minitron-4b
     (untied), mamba2-2.7b and hymba-1.5b, ``generate`` under
     ``_no_host_sync``: tokens/s, ms a step, peak memory; then mamba2-2.7b
     and hymba-1.5b in fp32 at their published widths, prefill (the SSD's
-    chunked form) against decode (its recurrence) at 256 tokens."""
+    chunked form) against decode (its recurrence) at SSM_CHECK_TOKENS
+    tokens."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
+    log("reduced: serve --prompt-len 128 --max-new 128 -> --prompt-len 64 "
+        "--max-new 32 (llama3.2-3b, minitron-4b, mamba2-2.7b, hymba-1.5b); "
+        f"fp32 prefill vs decode 256 -> {SSM_CHECK_TOKENS} tokens (the "
+        f"script's time)")
     for arch in SERVE_ARCHS:
         reset_launches()
         with _guarded_generate():
@@ -5176,7 +5389,7 @@ def phase_serve_full(result):
             f" a step, {tok.numel() / served.seconds:.1f} new tokens/s, peak "
             f"device memory {served.peak_bytes / 1e9:.2f} GB")
         vocab = get_config(arch).vocab_size
-        if tok.shape != (8, 128) or int(tok.min()) < 0 or \
+        if tok.shape != (8, 32) or int(tok.min()) < 0 or \
                 int(tok.max()) >= vocab:
             raise AssertionError(f"serve {arch}: tokens {tok.shape}")
         del served, tok
@@ -5188,7 +5401,7 @@ def phase_serve_full(result):
                                torch.Generator(device="cuda").manual_seed(0))
         torch.cuda.reset_peak_memory_stats()
         pre, dec, _, cache = _prefill_vs_decode(
-            f"{arch} fp32 prefill vs decode", cfg, params, 256,
+            f"{arch} fp32 prefill vs decode", cfg, params, SSM_CHECK_TOKENS,
             SSM_DECODE_BOUND)
         _want_only(f"{arch} prefill", pre)
         _want_only(f"{arch} decode", dec)
@@ -5309,7 +5522,8 @@ def phase_minicpm3(result):
     fp32 delta tree. Then the full space through the trainer at the
     depth ``_lm_plan`` admits at that sequence, logged as a cut (B1 on
     the one bf16 group), and the trained model served: prefill against
-    MLA's absorbed decode at 256 tokens within BF16_DECODE_BOUND."""
+    MLA's absorbed decode at DECODE_CHECK_TOKENS tokens within
+    BF16_DECODE_BOUND."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5348,8 +5562,10 @@ def phase_minicpm3(result):
     torch.cuda.empty_cache()
 
     spec, rounds = _lm_spec(), 2
+    log(f"reduced: minicpm3 full space at most {MINICPM_FULL_LAYERS} layers "
+        f"(the script's time)")
     cut, _, _ = _lm_fit(spec, seq_len, arch="minicpm3-4b",
-                        chunk=MINICPM_CHUNK)
+                        chunk=MINICPM_CHUNK, max_layers=MINICPM_FULL_LAYERS)
     plan = _lm_plan(cut, seq_len, spec.local_batch)[2]
     tr, counts, secs, peaks = _lm_rounds("minicpm3", cut, spec, seq_len,
                                          rounds, plan)
@@ -5364,9 +5580,11 @@ def phase_minicpm3(result):
     del tr
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    log(f"reduced: minicpm3 decode vs prefill 256 -> {DECODE_CHECK_TOKENS} "
+        f"tokens (the script's time)")
     pre, dec, _, cache = _prefill_vs_decode(
         f"minicpm3 served ({cut.num_layers} layers, trained) MLA", cut,
-        served, 256, BF16_DECODE_BOUND)
+        served, DECODE_CHECK_TOKENS, BF16_DECODE_BOUND)
     _want_only("minicpm3 prefill", pre)
     _want_only("minicpm3 decode", dec)
     log(f"minicpm3 served: latent cache ckv "
@@ -5375,6 +5593,459 @@ def phase_minicpm3(result):
         f"{_peak_gb():.2f} GB")
     del served, cache
     torch.cuda.empty_cache()
+
+
+# qwen2-moe-a2.7b's and deepseek-v3-671b's CE vocab chunks (8 of 151936,
+# 8 of 129280)
+QWEN_CHUNK, DEEPSEEK_CHUNK = 18992, 16160
+# phase 48: deepseek-v3-671b's 3 dense layers and one MoE layer
+DEEPSEEK_LAYERS = 4
+# phase 48's LoRA targets: MLA's wo, the dense layers' MLP and the shared
+# expert. The routed experts' merged copy and its gradient (256 x 3 x
+# 7168 x 2048 bf16: 22.5 GB each) do not fit beside the ~28.4 GB frozen
+# base
+DEEPSEEK_TARGETS = "wo,*mlp.w_*,*shared.w_*"
+# the sequences phase 48 tries, longest first
+DEEPSEEK_SEQS = (2048, 1024, 512)
+QWEN_SERVE_ARGS = ("--arch", "qwen2-moe-a2.7b", "--preset", "full",
+                   "--batch", "8", "--prompt-len", "128", "--max-new", "64")
+# ragged against gshard at capacity factor 8 (no drops) on the card: the
+# bounds of the JAX package's tests/test_moe.py
+MOE_RTOL, MOE_ATOL = 2e-4, 2e-5
+# the tokens of phases 47-48's MoE decode against prefill (routing pinned
+# to the prefill's, so every position is held)
+MOE_CHECK_TOKENS = 256
+# the rows of the evaluation batch launch.train runs after each round
+EVAL_ROWS = 8
+# G1 against its plain version, max |diff| over the plain output's
+# largest element (fp32 both; the two sum each element in another order)
+G1_BOUND = 1e-5
+# G1's cases, (rows, K, N, group ends): the reduced MoE's decode step
+# (batch 2 x top 2 rows, expert 1 empty), its prefill of 2 x 32 tokens
+# (128 rows) into w_gate/w_up (256 -> 128) and into w_down (128 -> 256)
+G1_CASES = ((4, 256, 128, (2, 2, 3, 4)), (128, 256, 128, (40, 64, 64, 128)),
+            (128, 128, 256, (40, 64, 64, 128)))
+
+
+def _moe_layers(cfg) -> int:
+    return sum(cfg.layer_uses_moe(i) for i in range(cfg.num_layers))
+
+
+@contextlib.contextmanager
+def _routes(pinned=None, b: int = 1):
+    """Within the block every MoE router call's own expert ids (tokens,
+    k) are appended, in call order, to the list yielded. With ``pinned``
+    (the prefill's ids, (b*S, k) for each of its n MoE layers) call j,
+    the decode's step j // n in layer j % n, returns instead that
+    layer's ids at position j // n, each weighted by the call's own
+    router probability, renormalised as the router does. No host
+    sync."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    inner, calls = L._router, []
+    rows = [ids.reshape(b, -1, ids.shape[-1]) for ids in pinned or ()]
+
+    def router(cfg, p, xf):
+        w, ids, aux = inner(cfg, p, xf)
+        j = len(calls)
+        calls.append(ids)
+        if not rows:
+            return w, ids, aux
+        ids = rows[j % len(rows)][:, j // len(rows)]
+        probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)
+        w = probs.gather(-1, ids)
+        return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), ids, aux
+
+    L._router = router
+    try:
+        yield calls
+    finally:
+        L._router = inner
+
+
+def _route_flips(pre_calls, dec_calls, b: int, steps: int):
+    """The count of (layer, row, position) routings whose expert set
+    differs between the prefill's router calls (one a MoE layer, (b*S,
+    k)) and the decode's own (one a layer a step, (b, k)), and the first
+    position where one does (``steps`` when none does)."""
+    import torch
+
+    n = len(pre_calls)
+    pre = torch.stack([c.reshape(b, -1, c.shape[-1])[:, :steps]
+                       for c in pre_calls])  # (n, b, steps, k)
+    dec = torch.stack(dec_calls).reshape(steps, n, b, -1).permute(1, 2, 0, 3)
+    differ = (pre.sort(-1).values != dec.sort(-1).values).any(-1)
+    at = differ.any(1).any(0).nonzero()
+    return int(differ.sum()), int(at[0]) if len(at) else steps
+
+
+def _moe_prefill_vs_decode(tag, cfg, params, seq_len, bound, b=2):
+    """``prefill`` of a seeded (b, seq_len) token batch against the same
+    tokens through ``decode_step`` (no host sync), max |diff| / max
+    |logit| over every position held to ``bound``. A routing is a
+    discontinuity: where a near-tie of the router's probabilities is
+    broken apart by the two paths' roundings, a token's top-k expert set
+    differs and, through attention, so does every later position. So the
+    decode's routing is pinned to the prefill's (``_routes``), its
+    weights its own, and the routings the decode would have chosen
+    otherwise are counted. Returns the launches of the prefill and of
+    the decode, the decode's host seconds and its cache."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (b, seq_len), generator=gen,
+                           device="cuda")
+    n_moe = _moe_layers(cfg)
+    reset_launches()
+    with torch.no_grad(), _routes() as pre_calls:
+        full = M.prefill(cfg, params, {"tokens": tokens}).float()
+    torch.cuda.synchronize()
+    pre = launches()
+    reset_launches()
+    cache = M.init_cache(cfg, b, seq_len)
+    with _routes(pre_calls, b) as dec_calls:
+        dec, secs = _decode_tokens(cfg, params, tokens, cache)
+    flips, first = _route_flips(pre_calls, dec_calls, b, seq_len)
+    rel = float((dec.float() - full).abs().max() / full.abs().max())
+    log(f"{tag}: {seq_len} decode steps {secs:.3f} s "
+        f"({1e3 * secs / seq_len:.2f} ms a step), routing pinned to the "
+        f"prefill's: the decode's own would differ in {flips} of "
+        f"{n_moe * b * seq_len} (layer, row, position) expert sets, the "
+        f"first at position {first}; decode vs prefill max |diff| / max "
+        f"|logit| {rel:.3e} over all {seq_len} positions (bound "
+        f"{bound:.0e}); launches: prefill {pre}, decode {launches()}")
+    if not rel <= bound:
+        raise AssertionError(f"{tag}: decode vs prefill {rel}")
+    return pre, launches(), secs, cache
+
+
+def _check_grouped_mm(result) -> None:
+    """G1, the fp32 grouped product, on the card against its plain
+    version (one ``@`` a group, on the card) at ``G1_CASES``: forward,
+    the input gradient (the forward on b transposed) and the weight
+    gradient (zeros for the empty group), within G1_BOUND of the plain
+    output's largest element; then timed at the prefill's w_gate shape
+    beside the plain version, ``torch._grouped_mm`` in fp32 (the library
+    call; it copies the offsets to the host) and the bound."""
+    import torch
+
+    from repro_torch.kernels.grouped_mm import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    err = 0.0
+    for m, k, n, ends in G1_CASES:
+        a = torch.randn((m, k), generator=gen, device="cuda")
+        b = torch.randn((len(ends), k, n), generator=gen, device="cuda")
+        d = torch.randn((m, n), generator=gen, device="cuda")
+        e = torch.tensor(ends, dtype=torch.int32, device="cuda")
+        reset_launches()
+        got = [ops.grouped_mm_cuda(a, b, e),
+               ops.grouped_mm_cuda(d, b.transpose(1, 2), e),
+               ops.grouped_mm_wgrad_cuda(a, d, e)]
+        torch.cuda.synchronize()
+        if launches()["grouped_mm"] != 3:
+            raise AssertionError(f"G1 check: launches {launches()}")
+        lo = (0,) + ends[:-1]
+        want = [ref.grouped_mm_ref(a, b, e),
+                ref.grouped_mm_ref(d, b.transpose(1, 2), e),
+                torch.stack([a[i:j].T @ d[i:j] for i, j in zip(lo, ends)])]
+        for what, x, y in zip(("forward", "input grad", "weight grad"), got,
+                              want):
+            rel = float((x - y).abs().max() / y.abs().max())
+            err = max(err, float((x - y).abs().max()))
+            log(f"G1 check: grouped_mm {what}, {m} rows, K {k}, N {n}, "
+                f"ends {ends}: max |kernel - plain| / max |plain| "
+                f"{rel:.2e} (bound {G1_BOUND:.0e})")
+            if not rel <= G1_BOUND:
+                raise AssertionError(f"G1 check {what}: {rel}")
+        for g, (i, j) in enumerate(zip(lo, ends)):
+            if i == j and bool(got[2][g].any()):
+                raise AssertionError(f"G1 check: empty group {g}'s gradient")
+    m, k, n, ends = G1_CASES[1]
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    b = torch.randn((len(ends), k, n), generator=gen, device="cuda")
+    e = torch.tensor(ends, dtype=torch.int32, device="cuda")
+    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
+    k_ms = cuda_ms(lambda: ops.grouped_mm_cuda(a, b, e), 50, flush=flush)
+    p_ms = cuda_ms(lambda: ref.grouped_mm_ref(a, b, e), 50, flush=flush)
+    lib_ms = cuda_ms(lambda: torch._grouped_mm(a, b, offs=e), 50,
+                     flush=flush)
+    nbytes = 4 * (m * k + len(ends) * k * n + m * n) + 4 * len(ends)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 2 * m * k * n / FP32_FLOPS_PER_S * 1e3
+    bound = max(by_bytes, by_ops)
+    bound_by = "bytes" if by_bytes >= by_ops else "operations"
+    log(f"G1 timed at {m} rows, K {k}, N {n}, {len(ends)} groups (fp32, L2 "
+        f"flushed, CUDA events): kernel {k_ms:.4f} ms, plain {p_ms:.4f}, "
+        f"torch._grouped_mm {lib_ms:.4f}; bound {bound:.5f} ms "
+        f"({bound_by}: {nbytes / 1e6:.2f} MB, {2 * m * k * n / 1e6:.1f} "
+        f"MFLOP)")
+    result["g1"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                        bound_by=bound_by, library_ms=lib_ms,
+                        max_abs_err=err)
+    del flush
+
+
+def _moe_small_checks(result) -> None:
+    """Phase 40's MoE part: the reduced qwen2-moe and deepseek (gshard)
+    federated round on the card against the CPU (B1), and the ragged
+    block against gshard at capacity factor 8 on the card (G1 in the
+    ragged one's three products)."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    for arch in ("qwen2-moe-a2.7b", "deepseek-v3-671b"):
+        err, counts, steps = _card_vs_cpu_fed_round(arch, 32)
+        log(f"moe check: 2-layer fp32 {arch} (gshard), one SCAFFOLD "
+            f"federated_round on the card (B1) vs the CPU: max leaf err "
+            f"{err:.2e} (bound 1e-4; relative, c and c_i with a floor of 16 "
+            f"eps x over K eta_l); card launches {counts['cuda']}")
+        _want_only(f"moe check {arch}", counts["cuda"],
+                   scaffold_update=steps)
+        if not err <= 1e-4 or any(counts["cpu"].values()):
+            raise AssertionError(f"moe check {arch}: {err}, {counts}")
+        result.setdefault("b1_paths", {})[f"{arch} card vs CPU"] = steps
+        cfg = get_reduced(arch)
+        params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        pre = next(k for k in params if k.endswith("/moe/router"))[:-6]
+        p = {k[len(pre):]: v[0].cuda() for k, v in params.items()
+             if k.startswith(pre)}
+        x = torch.randn((2, 32, cfg.d_model),
+                        generator=torch.Generator().manual_seed(3)).cuda()
+        reset_launches()
+        with torch.no_grad():
+            out_r, aux_r = L.moe_block_ragged(cfg, p, x)
+            out_g, aux_g = L.moe_block_gshard(cfg, p, x, capacity_factor=8.0)
+        torch.cuda.synchronize()
+        _want_only(f"moe check {arch} blocks", launches(), grouped_mm=3)
+        result.setdefault("g1_paths", {})[f"{arch} ragged block"] = 3
+        over = float(((out_r - out_g).abs() - MOE_ATOL
+                      - MOE_RTOL * out_g.abs()).max())
+        aux_rel = abs(float(aux_r) - float(aux_g)) / abs(float(aux_g))
+        log(f"moe check: {arch} ragged vs gshard at capacity factor 8 on the "
+            f"card: max |diff| {float((out_r - out_g).abs().max()):.2e} "
+            f"(bound {MOE_ATOL:.0e} + {MOE_RTOL:.0e} |gshard|: "
+            f"{'within' if over <= 0 else 'over'}), aux rel {aux_rel:.2e} "
+            f"(bound 1e-5)")
+        if over > 0 or not aux_rel <= 1e-5:
+            raise AssertionError(f"moe check {arch}: ragged vs gshard")
+
+
+def _merged_moe_decode(tag, cfg, params) -> None:
+    """A trained bf16 MoE model's prefill against ``decode_step`` at
+    MOE_CHECK_TOKENS tokens (``_moe_prefill_vs_decode``: routing pinned
+    to the prefill's, every position within BF16_DECODE_BOUND), no host
+    sync, no kernel of the port (the grouped products are bf16
+    ``torch._grouped_mm``)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    pre, dec, _, cache = _moe_prefill_vs_decode(
+        f"{tag} ({cfg.num_layers} layers, bf16)", cfg, params,
+        MOE_CHECK_TOKENS, BF16_DECODE_BOUND)
+    _want_only(f"{tag} prefill", pre)
+    _want_only(f"{tag} decode", dec)
+    log(f"{tag}: cache leaves {len(cache)}; peak device memory "
+        f"{_peak_gb():.2f} GB")
+    del cache
+    torch.cuda.empty_cache()
+
+
+def phase_qwen_lora(result):
+    """Phase 46, LoRA: qwen2-moe-a2.7b at its published widths, bf16,
+    seq 2048, through ``repro_torch.launch.train.main``: LoRA r 8 on the
+    default targets (attention, the shared experts and the routed
+    experts' 4-D adapters, A (L, 60, 2048, 8) and B (L, 60, 8, 1408)) at
+    the depth ``_lm_plan`` admits, logged as a cut; B1 on the fp32 delta
+    tree, launches exact. The trained model, merged, is kept for phase
+    47."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    seq_len, rounds, steps = 2048, 2, 2 * 2
+    base = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                               loss_chunk_vocab=QWEN_CHUNK)
+    depth = base.num_layers
+    while True:
+        cfg = dataclasses.replace(base, num_layers=depth)
+        n_t, n_delta, big = _lora_sizes(cfg, LORA_RANK)
+        plan = _lm_plan(cfg, seq_len, 1, subset=(n_t, 4 * n_delta, big))[2]
+        if plan <= LM_MEMORY_LIMIT or depth == 1:
+            break
+        depth -= 1
+    mo = cfg.moe
+    log(f"lora qwen2-moe: {cfg.name} widths (d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads x {cfg.head_dim}, {mo.num_experts} experts "
+        f"of {mo.expert_d_ff}, top {mo.top_k}, {mo.num_shared_experts} "
+        f"shared, vocab {cfg.vocab_size}, {cfg.param_dtype}, ragged "
+        f"dispatch); LoRA r {LORA_RANK} targets hold {n_t} params, the "
+        f"delta tree {n_delta} elements, the largest target "
+        f"{big / 1e9:.2f} GB; memory reckoning at {depth} layers "
+        f"{plan / 1e9:.1f} GB (limit {LM_MEMORY_LIMIT / 1e9:.0f} GB)")
+    if depth != base.num_layers:
+        log(f"reduced: num_layers {base.num_layers} -> {depth} "
+            f"(qwen2-moe-a2.7b LoRA, by the memory plan)")
+    reset_launches()
+    with _depth_cut(depth), _RoundLog("lora qwen2-moe", steps * seq_len,
+                                      plan) as rl:
+        tr = train.main(_train_argv("qwen2-moe-a2.7b", seq_len, rounds,
+                                    QWEN_CHUNK, "--update-space", "lora",
+                                    "--lora-rank", str(LORA_RANK)))
+    counts = launches()
+    _check_subset_rounds("lora qwen2-moe", tr, rl.rows, "lora", n_delta, 4)
+    a = tr.x["layers.0.moe.w_gate/A"]
+    b = tr.x["layers.0.moe.w_down/B"]
+    log(f"lora qwen2-moe: {len(tr.x)} delta leaves; expert adapters "
+        f"w_gate/A {tuple(a.shape)}, w_down/B {tuple(b.shape)}; s/round "
+        + ", ".join(f"{r['seconds']:.3f}" for r in rl.rows))
+    if (tuple(a.shape) != (depth, 60, 2048, LORA_RANK)
+            or tuple(b.shape) != (depth, 60, LORA_RANK, 2048)):
+        raise AssertionError(f"lora qwen2-moe: adapters {a.shape} {b.shape}")
+    n = _want_b1("lora qwen2-moe", counts, tr.spec, 1, rounds)
+    result.setdefault("b1_paths", {})["lora qwen2-moe-a2.7b"] = n
+    result["qwen_lora"] = (cfg, tr.eval_params())
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+
+def phase_qwen_serve(result):
+    """Phase 47: ``repro_torch.launch.serve.main --arch qwen2-moe-a2.7b
+    --preset full --batch 8 --prompt-len 128 --max-new 64`` at all 24
+    layers (the ragged dispatch through ``torch._grouped_mm``, bf16),
+    ``generate`` under ``_no_host_sync``: ms a step, new tokens/s, peak
+    memory; then phase 46's LoRA model, merged (``_merged_moe_decode``):
+    its prefill against ``decode_step`` at MOE_CHECK_TOKENS tokens, the
+    decode's routing pinned to the prefill's."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    reset_launches()
+    with _guarded_generate():
+        served = serve.main(list(QWEN_SERVE_ARGS))
+    _want_only("serve qwen2-moe", launches())
+    tok = served.tokens
+    log(f"serve qwen2-moe-a2.7b (24 layers, bf16): {served.steps} steps, "
+        f"{served.ms_per_step:.2f} ms a step, "
+        f"{tok.numel() / served.seconds:.1f} new tokens/s, peak device "
+        f"memory {served.peak_bytes / 1e9:.2f} GB")
+    if tok.shape != (8, 64) or int(tok.min()) < 0 or \
+            int(tok.max()) >= 151936:
+        raise AssertionError(f"serve qwen2-moe: tokens {tok.shape}")
+    del served, tok
+    torch.cuda.empty_cache()
+    cfg, params = result.pop("qwen_lora")
+    _merged_moe_decode("qwen2-moe LoRA merged", cfg, params)
+
+
+def phase_qwen_full(result):
+    """Phase 46, the full space: qwen2-moe-a2.7b through the trainer at
+    the depth ``_lm_plan`` admits at seq 2048, logged as a cut; B1 on the
+    one bf16 group, launches exact; a profiled round (busy share); B1
+    held to its plain version and timed on the trained tree."""
+    import torch
+
+    seq_len, rounds = 2048, 2
+    spec = _lm_spec()
+    cut, _, _ = _lm_fit(spec, seq_len, arch="qwen2-moe-a2.7b",
+                        chunk=QWEN_CHUNK)
+    plan = _lm_plan(cut, seq_len, spec.local_batch)[2]
+    tr, counts, secs, peaks = _lm_rounds("qwen2-moe", cut, spec, seq_len,
+                                         rounds, plan)
+    groups = len(_b1_groups(tr))
+    n = _want_b1("qwen2-moe", counts, spec, groups, rounds)
+    _plan_vs_peak(f"qwen2-moe at {cut.num_layers} layers", plan, max(peaks))
+    log(f"qwen2-moe: rounds 2-{rounds} mean {statistics.mean(secs[1:]):.3f} "
+        f"s at {cut.num_layers} of 24 layers")
+    if groups != 1 or n != 8:
+        raise AssertionError(f"qwen2-moe: {groups} groups, B1 {n}")
+    result.setdefault("b1_paths", {})["qwen2-moe-a2.7b"] = n
+    _profile_round(tr, "qwen2-moe", kernels=("scaffold_update",))
+    torch.cuda.empty_cache()
+    result["b1"].setdefault("trees", {})[
+        f"qwen2-moe {cut.num_layers} layers"] = _time_update_tree(
+            f"scaffold_update at the qwen2-moe-a2.7b tree ({cut.num_layers} "
+            f"layers, experts stacked)", tr.x, tr.c, spec.eta_l)
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+
+def phase_deepseek(result):
+    """Phase 48: deepseek-v3-671b at its published widths cut to
+    ``DEEPSEEK_LAYERS`` (its 3 dense layers of d_ff 18432 and one MoE
+    layer of 256 experts, top 8, and a shared expert; MLA in all), bf16,
+    through ``repro_torch.launch.train.main``: LoRA r 8 on
+    ``DEEPSEEK_TARGETS`` (the routed experts left out, logged as a cut)
+    at the longest of ``DEEPSEEK_SEQS`` whose plan fits; B1 on the delta
+    tree, launches exact. Then the trained model's MLA + MoE decode
+    against its prefill at MOE_CHECK_TOKENS tokens
+    (``_merged_moe_decode``), no host sync."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_LAYERS,
+                              loss_chunk_vocab=DEEPSEEK_CHUNK)
+    n_t, n_delta, big = _lora_sizes(cfg, LORA_RANK, DEEPSEEK_TARGETS)
+    for seq_len in DEEPSEEK_SEQS:
+        n, tree, plan = _lm_plan(cfg, seq_len, 1,
+                                 subset=(n_t, 4 * n_delta, big))
+        log(f"deepseek: LoRA plan at seq {seq_len}, {DEEPSEEK_LAYERS} "
+            f"layers: {plan / 1e9:.1f} GB (limit "
+            f"{LM_MEMORY_LIMIT / 1e9:.0f} GB)")
+        if plan <= LM_MEMORY_LIMIT:
+            break
+    mo = cfg.moe
+    log(f"deepseek: {n} params ({tree / 1e9:.2f} GB frozen, bf16): "
+        f"{mo.first_dense_layers} dense layers of d_ff {mo.dense_d_ff}, "
+        f"{_moe_layers(cfg)} MoE layer of {mo.num_experts} experts of "
+        f"{mo.expert_d_ff}, top {mo.top_k}, {mo.num_shared_experts} shared;"
+        f" MLA ranks {cfg.mla.q_lora_rank}/{cfg.mla.kv_lora_rank}; LoRA r "
+        f"{LORA_RANK} on {DEEPSEEK_TARGETS!r}: {n_t} target params, "
+        f"{n_delta} delta elements")
+    log(f"reduced: num_layers {full.num_layers} -> {DEEPSEEK_LAYERS} "
+        f"(deepseek-v3-671b: 3 dense + 1 MoE layer on one card)")
+    log(f"reduced: LoRA targets {DEEPSEEK_TARGETS!r} (deepseek-v3-671b: the "
+        f"routed experts not targeted)")
+    if seq_len != DEEPSEEK_SEQS[0]:
+        log(f"reduced: seq {DEEPSEEK_SEQS[0]} -> {seq_len} "
+            f"(deepseek-v3-671b)")
+    rounds, steps = 2, 2 * 2
+    reset_launches()
+    with _depth_cut(DEEPSEEK_LAYERS), _RoundLog(
+            "lora deepseek", steps * seq_len, plan) as rl:
+        tr = train.main(_train_argv("deepseek-v3-671b", seq_len, rounds,
+                                    DEEPSEEK_CHUNK, "--update-space", "lora",
+                                    "--lora-rank", str(LORA_RANK),
+                                    "--lora-targets", DEEPSEEK_TARGETS))
+    counts = launches()
+    _check_subset_rounds("lora deepseek", tr, rl.rows, "lora", n_delta, 4)
+    leaves = sorted({k.rsplit("/", 1)[0] for k in tr.x})
+    log(f"lora deepseek: {len(tr.x)} delta leaves on {leaves}")
+    if any(".moe.w_" in k for k in leaves) or not any(
+            ".moe.shared." in k for k in leaves):
+        raise AssertionError(f"lora deepseek: targets {leaves}")
+    n = _want_b1("lora deepseek", counts, tr.spec, 1, rounds)
+    result.setdefault("b1_paths", {})["lora deepseek-v3-671b"] = n
+    served = tr.eval_params()
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+    _merged_moe_decode("deepseek served (MLA + MoE)", cfg, served)
 
 
 def _phase(fn, *args):
@@ -5404,11 +6075,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     t_all = time.perf_counter()
     smi = _phase(phase_environment)
-    _phase(phase_build)
+    (OUT / "ptxas.txt").unlink(missing_ok=True)
+    pending = _phase(phase_build)
     _phase(phase_b1_plain)
     _phase(phase_b2_plain)
-    _phase(phase_b3_plain)
-    _phase(phase_b4_plain)
     result = {}
     _phase(phase_b5_plain, result)
     _phase(phase_lm_small)
@@ -5416,6 +6086,9 @@ def main() -> int:
     _phase(phase_gemma_full, result)
     _phase(phase_lm_full, result)
     _phase(phase_lm_momentum, result)
+    _phase(phase_build_wait, pending)
+    _phase(phase_b3_plain)
+    _phase(phase_b4_plain)
     from repro_torch.data import make_similarity_quadratics
 
     t0 = time.perf_counter()
@@ -5455,12 +6128,16 @@ def main() -> int:
     _phase(phase_serve_checkpoint, result)
     _phase(phase_encdec_serve, result)
     _phase(phase_minicpm3, result)
+    _phase(phase_qwen_lora, result)
+    _phase(phase_qwen_serve, result)
+    _phase(phase_qwen_full, result)
+    _phase(phase_deepseek, result)
     log(f"the profiler's own processing: "
         f"{sum(PROFILER_SECONDS.values()):.1f} s in all (" + ", ".join(
             f"{k} {v:.1f}" for k, v in PROFILER_SECONDS.items()) + ")")
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     # B1-B4 are bound by bytes and no one PyTorch call computes them
-    for key in ("b1", "b2", "b3", "b4", "b5"):
+    for key in ("b1", "b2", "b3", "b4", "b5", "g1"):
         paths = result.pop(f"{key}_paths")
         result[f"{key}_launches"] = sum(paths.values())
         result[key]["launches_by_path"] = paths
@@ -5473,7 +6150,8 @@ def main() -> int:
             ("scaffold_momentum_update", "update", B2_REPLACES, "b2"),
             ("scaffold_local_loop", "loop", B3_REPLACES, "b3"),
             ("scaffold_momentum_local_loop", "loop", B4_REPLACES, "b4"),
-            ("swa_attention", "swa", B5_REPLACES, "b5"))]
+            ("swa_attention", "swa", B5_REPLACES, "b5"),
+            ("grouped_mm", "grouped", G1_REPLACES, "g1"))]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

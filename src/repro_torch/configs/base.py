@@ -1,7 +1,8 @@
 """Config dataclasses for models and federated rounds.
 
 A copy of the JAX package's ``configs/base.py`` (``MLAConfig``,
-``SSMConfig``, ``EncoderConfig``, ``ModelConfig`` and ``FedRoundSpec``),
+``MoEConfig``, ``SSMConfig``, ``EncoderConfig``, ``ModelConfig`` and
+``FedRoundSpec``),
 field for field, so that a spec means the same in both packages.
 ``FedRoundSpec`` validates its names against the port's live
 registries, as the reference does, so a name registered at run time
@@ -11,7 +12,7 @@ builds a spec.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class MLAConfig:
@@ -23,6 +24,24 @@ class MLAConfig:
     qk_nope_head_dim: int
     qk_rope_head_dim: int
     v_head_dim: int
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Routed mixture-of-experts FFN (the JAX package's ``MoEConfig``)."""
+
+    num_experts: int
+    top_k: int
+    expert_d_ff: int
+    num_shared_experts: int = 0
+    shared_d_ff: int = 0
+    # layers [0, first_dense_layers) use a dense MLP instead of MoE
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+    router_aux_coef: float = 0.001
+    # the GShard dispatch's token group length and capacity factor
+    gshard_group_size: int = 2048
+    capacity_factor: float = 1.25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,9 +78,9 @@ class ModelConfig:
     ``ssm`` holds an :class:`SSMConfig` (the ``"M"`` and ``"Y"`` layers),
     ``encoder`` an :class:`EncoderConfig` (whisper's encoder tower and
     its decoder's cross-attention), ``mla`` an :class:`MLAConfig`
-    (MiniCPM3's attention); ``moe`` holds the JAX package's MoE
-    sub-config, whose models are not ported yet: the port's model raises
-    when it is set.
+    (MiniCPM3's and DeepSeek-V3's attention), ``moe`` a
+    :class:`MoEConfig` (the routed experts of qwen2-moe and
+    DeepSeek-V3).
     """
 
     name: str
@@ -88,10 +107,10 @@ class ModelConfig:
     # materialises the (tokens, V) fp32 logits)
     loss_chunk_vocab: int = 0
 
-    mla: Optional[Any] = None
-    moe: Optional[Any] = None
-    ssm: Optional[Any] = None
-    encoder: Optional[Any] = None
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    encoder: Optional[EncoderConfig] = None
 
     num_prefix_tokens: int = 0
 

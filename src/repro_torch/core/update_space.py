@@ -206,7 +206,9 @@ class LoRASpace(UpdateSpace):
             w = base[key]
             upd = torch.matmul(deltas[f"{path}/A"].float(),
                                deltas[f"{path}/B"].float())
-            merged[key] = (w.float() + scale * upd).to(w.dtype)
+            # (W.float() + scale * upd) with one fp32 temporary of W's
+            # size, not three (a stacked expert leaf is GBs)
+            merged[key] = upd.mul_(scale).add_(w).to(w.dtype)
         return merged
 
     def grad_keys(self, spec, base, deltas) -> List[str]:

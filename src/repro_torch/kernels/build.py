@@ -28,6 +28,7 @@ SOURCES = {
     "scaffold_update": "scaffold_update/csrc/scaffold_update.cu",
     "local_loop": "scaffold_update/csrc/local_loop.cu",
     "swa_attention": "swa_attention/csrc/swa_attention.cu",
+    "grouped_mm": "grouped_mm/csrc/grouped_mm.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -2,6 +2,7 @@
 forward, loss and the serving substrate) and the paper's EMNIST models
 (``simple``: logistic regression, a 2-layer MLP)."""
 from repro_torch.models.model import (  # noqa: F401
+    count_active_params,
     count_params_analytic,
     decode_step,
     forward,

@@ -4,8 +4,10 @@ norm, RoPE, dense GQA attention under the causal, sliding, prefix and
 full masks, the blocked online-softmax attention of long ``"F"``
 sequences, the banded local attention of ``"W"`` layers, MLA (multi-head
 latent attention), the silu- and gelu-gated MLPs and the plain gelu MLP,
-the Mamba2 SSD block of ``"M"`` and ``"Y"`` layers, and the one-token
-decode of each attention and of the SSD against its cache.
+the routed mixture of experts (router, ragged and GShard dispatch,
+shared experts), the Mamba2 SSD block of ``"M"`` and ``"Y"`` layers,
+and the one-token decode of each attention and of the SSD against its
+cache.
 
 Conventions as in the reference: activations (B, S, E); q/k/v
 (B, S, H, D); parameters are dicts of tensors. A decode cache is a dict
@@ -13,7 +15,8 @@ of tensors too (``k``/``v``, ``ckv``/``k_rope``, ``conv``/``state``);
 a decode step writes its new entries into it in place, where the
 reference returns an updated copy. Positions ``pos`` (B,) are integer
 tensors on the device, and every mask and slot is computed there: a
-decode step reads no value back to the host. MoE is not ported yet.
+decode step reads no value back to the host (an MoE layer's routing
+included).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.grouped_mm.ops import grouped_mm
 from repro_torch.kernels.swa_attention.ops import swa_attention
 
 # ---------------------------------------------------------------------------
@@ -32,10 +36,12 @@ from repro_torch.kernels.swa_attention.ops import swa_attention
 
 
 def dense_init(gen, shape, dtype, device, scale: Optional[float] = None):
-    """Normal(0, scale) weights of a (d_in, d_out) matrix, ``scale``
-    1/sqrt(d_in) unless given, drawn in fp32 and cast to ``dtype``."""
+    """Normal(0, scale) weights of a (d_in, d_out) matrix or of (E, d_in,
+    d_out) expert matrices, ``scale`` 1/sqrt(d_in) unless given, drawn in
+    fp32 and cast to ``dtype``."""
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    scale = (1.0 / math.sqrt(shape[0])) if scale is None else scale
+    fan_in = shape[1] if len(shape) == 3 else shape[0]
+    scale = (1.0 / math.sqrt(fan_in)) if scale is None else scale
     return (w * scale).to(dtype)
 
 
@@ -520,10 +526,11 @@ def init_mla_cache(cfg, batch, seq_len, dtype, device):
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(cfg, gen, dtype, device):
+def init_mlp(cfg, gen, dtype, device, d_ff: Optional[int] = None):
     """MLP weights: w_up, w_down for the plain ``"gelu"`` MLP; w_gate,
-    w_up, w_down for the silu- and gelu-gated ones."""
-    e, f = cfg.d_model, cfg.d_ff
+    w_up, w_down for the silu- and gelu-gated ones; of width ``d_ff``
+    (``cfg.d_ff`` when None)."""
+    e, f = cfg.d_model, cfg.d_ff if d_ff is None else d_ff
     if cfg.mlp_kind == "gelu":
         return {"w_up": dense_init(gen, (e, f), dtype, device),
                 "w_down": dense_init(gen, (f, e), dtype, device)}
@@ -545,6 +552,169 @@ def mlp_block(cfg, p, x):
     act = (F.silu(gate) if cfg.mlp_kind == "silu_gated"
            else F.gelu(gate, approximate="tanh"))
     return (act * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (routed experts): the ragged path and the GShard dispatch path
+# ---------------------------------------------------------------------------
+
+
+def init_moe(cfg, gen, dtype, device):
+    """The MoE leaves, the reference's: ``router`` (E, n_experts) at
+    scale 0.02; ``w_gate``, ``w_up`` (n_experts, E, f) and ``w_down``
+    (n_experts, f, E), fan-in the middle axis; with shared experts
+    ``shared/w_gate``, ``shared/w_up``, ``shared/w_down``: one gated MLP
+    of width ``shared_d_ff * num_shared_experts`` and no gate of its
+    own."""
+    mo = cfg.moe
+    e, f, n = cfg.d_model, mo.expert_d_ff, mo.num_experts
+    p = {
+        "router": dense_init(gen, (e, n), dtype, device, scale=0.02),
+        "w_gate": dense_init(gen, (n, e, f), dtype, device),
+        "w_up": dense_init(gen, (n, e, f), dtype, device),
+        "w_down": dense_init(gen, (n, f, e), dtype, device),
+    }
+    if mo.num_shared_experts:
+        fs = mo.shared_d_ff * mo.num_shared_experts
+        p["shared/w_gate"] = dense_init(gen, (e, fs), dtype, device)
+        p["shared/w_up"] = dense_init(gen, (e, fs), dtype, device)
+        p["shared/w_down"] = dense_init(gen, (fs, e), dtype, device)
+    return p
+
+
+def _expert_act(cfg, x):
+    """The experts' activation: gelu (tanh form) for ``"gelu_gated"``,
+    silu otherwise, as the reference picks it."""
+    if cfg.mlp_kind == "gelu_gated":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def _one_hot(ids, n: int):
+    """fp32 one-hot of integer ``ids`` over ``n`` classes, by comparison
+    (no check that reads the ids back to the host)."""
+    return (ids[..., None] == torch.arange(n, device=ids.device)).float()
+
+
+def _router(cfg, p, xf):
+    """xf (T, E) tokens -> top-k weights (T, k), expert ids (T, k) int64
+    and the Switch load-balance loss ``n_experts * sum(frac_tokens *
+    frac_probs)``. Logits and softmax in fp32; the weights renormalised
+    by ``max(sum, 1e-9)``. The loss's gradient reaches the router only
+    through ``frac_probs`` (the token fractions count the ids)."""
+    mo = cfg.moe
+    probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)
+    w, ids = torch.topk(probs, mo.top_k, dim=-1)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    frac_tokens = _one_hot(ids, mo.num_experts).sum(1).mean(0) / mo.top_k
+    aux = mo.num_experts * torch.sum(frac_tokens * probs.mean(0))
+    return w, ids, aux
+
+
+def moe_block_ragged(cfg, p, x):
+    """Dropless dispatch: the (token, k) assignments sorted by expert
+    (stable, as ``jnp.argsort``), the experts' gated MLP as three grouped
+    products (``kernels.grouped_mm``: the group ends stay on the device,
+    so a decode step makes no host sync), and the combine. The combine
+    un-sorts the rows to (T, k, E) and sums over k, each term the
+    expert's output times its weight in the output's dtype: a fixed
+    order (the reference scatter-adds into zeros, whose order a CUDA
+    ``index_add_`` would vary run to run). Returns (out, aux)."""
+    mo = cfg.moe
+    b, s, e = x.shape
+    xf = x.reshape(b * s, e)
+    t, k = xf.shape[0], mo.top_k
+    w, ids, aux = _router(cfg, p, xf)
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    xs = xf[order // k]
+    ends = torch.searchsorted(
+        flat[order], torch.arange(mo.num_experts, device=x.device),
+        right=True).to(torch.int32)
+    h = _expert_act(cfg, grouped_mm(xs, p["w_gate"], ends)) * grouped_mm(
+        xs, p["w_up"], ends)
+    out_s = grouped_mm(h, p["w_down"], ends)  # (T*k, E), sorted
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=x.device)
+    terms = out_s[inv].reshape(t, k, e) * w[..., None].to(out_s.dtype)
+    out = terms.sum(1).reshape(b, s, e).to(x.dtype)
+    return out + _shared_expert(cfg, p, x), aux
+
+
+def _gshard_groups(cfg, t: int, capacity_factor: float, group_size: int):
+    """The dispatch's group length g (``group_size`` halved until it
+    divides t) and the capacity ``max(int(g k / n_experts * cf), k)``."""
+    mo = cfg.moe
+    g = min(group_size, t)
+    while t % g:
+        g //= 2
+    cap = max(int(g * mo.top_k / mo.num_experts * capacity_factor),
+              mo.top_k)
+    return g, cap
+
+
+def gshard_keep(cfg, ids, cap: int):
+    """ids (g, k) of one group -> the one-hot assignments (g, k, n) fp32,
+    each assignment's capacity slot (g, k) and its kept mask (g, k):
+    slots count over the flattened (g, k) assignments of an expert, in
+    order, and a slot at or past ``cap`` is dropped."""
+    n = cfg.moe.num_experts
+    onehot = _one_hot(ids, n)
+    gsz, kk, _ = onehot.shape
+    oh = onehot.reshape(gsz * kk, n)
+    pos = ((torch.cumsum(oh, dim=0) - oh) * oh).sum(-1).reshape(gsz, kk)
+    return onehot, pos, (pos < cap).float()
+
+
+def moe_block_gshard(cfg, p, x, *, capacity_factor: Optional[float] = None,
+                     group_size: Optional[int] = None):
+    """GShard capacity dispatch through one-hot einsums, a token group at
+    a time (the reference maps over groups), so the (g, n_experts, C)
+    dispatch tensor stays bounded. The dispatch and combine einsums run
+    in the compute dtype: the one-hot values are exact and a slot holds
+    at most one token, so only the combine weights round. Returns (out,
+    aux)."""
+    mo = cfg.moe
+    cf = mo.capacity_factor if capacity_factor is None else capacity_factor
+    gs = mo.gshard_group_size if group_size is None else group_size
+    b, s, e = x.shape
+    xf = x.reshape(b * s, e)
+    t = xf.shape[0]
+    g, cap = _gshard_groups(cfg, t, cf, gs)
+    w, ids, aux = _router(cfg, p, xf)
+    slots = torch.arange(cap, device=x.device)
+    outs = []
+    for lo in range(0, t, g):
+        xg, wg, idg = xf[lo:lo + g], w[lo:lo + g], ids[lo:lo + g]
+        onehot, pos, keep = gshard_keep(cfg, idg, cap)
+        # a slot past the capacity has no one-hot column (jax.nn.one_hot)
+        pos_oh = (pos[..., None] == slots).float()
+        disp = torch.einsum("gke,gkc->gec", onehot * keep[..., None], pos_oh)
+        comb = torch.einsum("gec,gk,gke->gec", disp, wg.float(), onehot)
+        xin = torch.einsum("gec,gd->ecd", disp.to(x.dtype), xg)
+        hg = _expert_act(cfg, torch.einsum("ecd,edf->ecf", xin,
+                                           p["w_gate"]))
+        hu = torch.einsum("ecd,edf->ecf", xin, p["w_up"])
+        ho = torch.einsum("ecf,efd->ecd", hg * hu, p["w_down"])
+        outs.append(torch.einsum("gec,ecd->gd", comb.to(x.dtype), ho))
+    out = torch.cat(outs).reshape(b, s, e)
+    return out + _shared_expert(cfg, p, x), aux
+
+
+def _shared_expert(cfg, p, x):
+    """The shared experts' fused gated MLP (zeros without them)."""
+    if "shared/w_gate" not in p:
+        return torch.zeros_like(x)
+    gate = _expert_act(cfg, x @ p["shared/w_gate"])
+    return (gate * (x @ p["shared/w_up"])) @ p["shared/w_down"]
+
+
+def moe_block(cfg, p, x, impl: str = "ragged"):
+    """The MoE FFN of x (B, S, E) by ``impl`` (``"ragged"`` or
+    ``"gshard"``) -> (out, aux)."""
+    if impl == "gshard":
+        return moe_block_gshard(cfg, p, x)
+    return moe_block_ragged(cfg, p, x)
 
 
 # ---------------------------------------------------------------------------

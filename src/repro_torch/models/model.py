@@ -39,12 +39,6 @@ def _dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _check_supported(cfg) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE models are not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -55,7 +49,6 @@ def init_params(cfg, gen=None, device="cuda") -> Dict[str, torch.Tensor]:
     on ``device``; a fresh one seeded with 0 when None). The draws differ
     from the reference's threefry keys; the shapes, dtypes and scales are
     the reference's."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -95,7 +88,6 @@ def _mamba_params(cfg) -> int:
 
 def count_params_analytic(cfg) -> int:
     """Total parameter count from the shapes (no allocation)."""
-    _check_supported(cfg)
     e, h, hkv, d, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     norm = 2 * e if cfg.norm_kind == "layernorm" else e  # + the bias
@@ -107,7 +99,8 @@ def count_params_analytic(cfg) -> int:
                                m.v_head_dim)
         attn = (e * qr + qr + qr * h * (dn + dr) + e * kvr + kvr + e * dr
                 + kvr * h * (dn + dv) + h * dv * e)  # layers.init_mla
-    mlp = (2 if cfg.mlp_kind == "gelu" else 3) * e * f
+    n_mats = 2 if cfg.mlp_kind == "gelu" else 3
+    mlp = n_mats * e * f
     dense = 2 * norm + attn + mlp
     cross = norm + attn if cfg.encoder is not None else 0
     per_kind = {"F": dense + cross, "W": dense + cross}
@@ -116,6 +109,17 @@ def count_params_analytic(cfg) -> int:
         per_kind["Y"] = dense + norm + _mamba_params(cfg) + cross
     total = cfg.vocab_size * e + norm + sum(
         per_kind[k] for k in cfg.pattern_for_layers())
+    if cfg.moe is not None:
+        # an MoE layer's experts in place of its MLP (layers.init_moe); a
+        # dense layer's MLP is dense_d_ff wide once first_dense_layers > 0
+        mo = cfg.moe
+        moe = e * mo.num_experts + 3 * mo.num_experts * e * mo.expert_d_ff
+        if mo.num_shared_experts:
+            moe += 3 * e * mo.shared_d_ff * mo.num_shared_experts
+        dense_f = mo.dense_d_ff if mo.first_dense_layers else f
+        for i in range(cfg.num_layers):
+            total += (moe - mlp if cfg.layer_uses_moe(i)
+                      else n_mats * e * dense_f - mlp)
     if not cfg.tie_embeddings:
         total += e * cfg.vocab_size  # unembed
     if cfg.encoder is not None:
@@ -123,6 +127,20 @@ def count_params_analytic(cfg) -> int:
     if cfg.num_prefix_tokens:
         total += e * e  # prefix_proj
     return total
+
+
+def count_active_params(cfg) -> int:
+    """Parameters active a token: an MoE layer's routed experts count
+    ``top_k`` of their ``num_experts`` (the reference's)."""
+    total = count_params_analytic(cfg)
+    if cfg.moe is None:
+        return total
+    mo = cfg.moe
+    n_moe_layers = sum(cfg.layer_uses_moe(i) for i in range(cfg.num_layers))
+    per_expert = 3 * cfg.d_model * mo.expert_d_ff
+    routed = n_moe_layers * mo.num_experts * per_expert
+    active_routed = n_moe_layers * mo.top_k * per_expert
+    return total - routed + active_routed
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +174,6 @@ def forward_hidden(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     prefix LM prepends ``patches @ prefix_proj`` to the text and drops
     the prefix's positions after the final norm, so the hidden states
     are the text's."""
-    _check_supported(cfg)
     tokens = batch["tokens"]
     x = _embed(cfg, params, tokens)
     enc_out = None
@@ -230,21 +247,24 @@ def _chunked_ce(cfg, params, hidden, labels, mask):
 
 
 def loss_fn(cfg, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy; labels < 0 are masked."""
+    """Next-token cross-entropy, plus ``router_aux_coef`` times the MoE
+    layers' summed load-balance loss; labels < 0 are masked."""
     labels = batch["labels"].long()
     mask = (labels >= 0).float()
     labels = torch.clamp(labels, min=0)
     denom = torch.clamp(mask.sum(), min=1.0)
     if cfg.loss_chunk_vocab:
-        hidden, _ = forward_hidden(cfg, params, batch)
+        hidden, aux = forward_hidden(cfg, params, batch)
         nll = _chunked_ce(cfg, params, hidden, labels, mask)
     else:
-        logits, _ = forward(cfg, params, batch)
+        logits, aux = forward(cfg, params, batch)
         logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         nll = (logz - gold) * mask
     loss = nll.sum() / denom
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_coef * aux
     return loss, {"loss": loss, "ntokens": denom}
 
 
@@ -265,7 +285,6 @@ def init_cache(cfg, batch_size: int, seq_len: int, device="cuda"):
     """Zero decode caches for ``batch_size`` rows of up to ``seq_len``
     tokens in the compute dtype (the SSD state in fp32), plus ``enc_out``
     (B, frames, E) for an encoder-decoder."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg.compute_dtype)
     cache = T.init_cache(cfg, batch_size, seq_len, dtype, dev)

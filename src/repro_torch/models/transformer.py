@@ -9,9 +9,10 @@ The ``"F"`` (full causal or prefix-LM attention + dense MLP), ``"W"``
 (sliding-window attention + dense MLP), ``"M"`` (Mamba2 SSD) and ``"Y"``
 (attention and Mamba2 in parallel on one norm, + dense MLP) layers are
 ported, with MLA in place of GQA attention where the config has one,
-and so are the cross-attention of an encoder-decoder's decoder layers
-and the encoder tower (whisper); MoE layers raise
-``NotImplementedError``.
+and so are the cross-attention of an encoder-decoder's decoder layers,
+the encoder tower (whisper) and the routed mixture of experts in place
+of the MLP of an MoE layer (``moe/...``; the dense layers before
+``first_dense_layers`` take an MLP of width ``dense_d_ff``).
 
 Decode caches are flat dicts in the same layout: each layer's cache
 stacked on the group's layer axis and keyed by the reference cache's
@@ -60,10 +61,8 @@ def layer_groups(cfg) -> List[LayerGroup]:
         else:
             groups.append(LayerGroup(sig[0], sig[1], 1, sig[2]))
     for g in groups:
-        if g.kind not in ("F", "W", "M", "Y") or g.uses_moe:
-            raise NotImplementedError(
-                f"layer group {g}: not ported yet (only dense 'F', 'W', "
-                f"'M' and 'Y' layers are)")
+        if g.kind not in ("F", "W", "M", "Y"):
+            raise NotImplementedError(f"layer group {g}: unknown kind")
     return groups
 
 
@@ -73,12 +72,14 @@ def sub(p: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
     return {k[n:]: v for k, v in p.items() if k.startswith(prefix + "/")}
 
 
-def _init_layer(cfg, gen, kind: str, dtype, device,
-                has_cross: bool = False) -> Dict[str, torch.Tensor]:
+def _init_layer(cfg, gen, kind: str, dtype, device, has_cross: bool = False,
+                uses_moe: bool = False) -> Dict[str, torch.Tensor]:
     """One layer's leaves, the reference's per kind: ``"F"``/``"W"``
-    ln_attn, attn, ln_mlp, mlp; ``"Y"`` those and ln_mamba, mamba (the
-    forward reads ln_attn for both branches: ln_mamba stays unread, as
-    in the reference); ``"M"`` ln_attn, mamba; a decoder layer of an
+    ln_attn, attn, ln_mlp, mlp (moe in an MoE layer; a dense layer of a
+    model with ``first_dense_layers`` has an MLP of width
+    ``dense_d_ff``); ``"Y"`` those and ln_mamba, mamba (the forward reads
+    ln_attn for both branches: ln_mamba stays unread, as in the
+    reference); ``"M"`` ln_attn, mamba; a decoder layer of an
     encoder-decoder also ln_cross, cross."""
     p: Dict[str, torch.Tensor] = {}
 
@@ -92,8 +93,15 @@ def _init_layer(cfg, gen, kind: str, dtype, device,
         for k, v in init_attn(cfg, gen, dtype, device).items():
             p[f"attn/{k}"] = v
         norm("ln_mlp")
-        for k, v in L.init_mlp(cfg, gen, dtype, device).items():
-            p[f"mlp/{k}"] = v
+        if uses_moe:
+            for k, v in L.init_moe(cfg, gen, dtype, device).items():
+                p[f"moe/{k}"] = v
+        else:
+            d_ff = None
+            if cfg.moe is not None and cfg.moe.first_dense_layers:
+                d_ff = cfg.moe.dense_d_ff
+            for k, v in L.init_mlp(cfg, gen, dtype, device, d_ff).items():
+                p[f"mlp/{k}"] = v
     if kind in ("M", "Y"):
         norm("ln_mamba" if kind == "Y" else "ln_attn")
         for k, v in L.init_mamba(cfg, gen, dtype, device).items():
@@ -106,14 +114,15 @@ def _init_layer(cfg, gen, kind: str, dtype, device,
 
 
 def _init_stacked(cfg, gen, kind: str, count: int, prefix: str, dtype,
-                  device, has_cross: bool = False) -> Dict[str, torch.Tensor]:
+                  device, has_cross: bool = False,
+                  uses_moe: bool = False) -> Dict[str, torch.Tensor]:
     """``count`` layers of ``kind`` stacked, keyed ``<prefix><leaf path>``;
     drawn one layer at a time into the stacked tensors, each in its
     leaf's own dtype."""
     out: Dict[str, torch.Tensor] = {}
     for i in range(count):
         for k, v in _init_layer(cfg, gen, kind, dtype, device,
-                                has_cross).items():
+                                has_cross, uses_moe).items():
             key = prefix + k
             if i == 0:
                 out[key] = torch.empty((count,) + tuple(v.shape),
@@ -127,7 +136,7 @@ def init_stack(cfg, gen, dtype, device) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for gi, g in enumerate(layer_groups(cfg)):
         out.update(_init_stacked(cfg, gen, g.kind, g.count, f"layers/{gi}/",
-                                 dtype, device, g.has_cross))
+                                 dtype, device, g.has_cross, g.uses_moe))
     return out
 
 
@@ -144,13 +153,23 @@ def _cross_attention(cfg, p, x, enc_out):
     return out.reshape(b, s, h * d) @ p["wo"]
 
 
+def _ffn(cfg, p, h, uses_moe: bool):
+    """The layer's feed-forward part of the normed h: (out, aux), the
+    MoE block by ``cfg.moe_impl`` in an MoE layer, else the MLP (aux
+    None)."""
+    if uses_moe:
+        return L.moe_block(cfg, sub(p, "moe"), h, impl=cfg.moe_impl)
+    return L.mlp_block(cfg, sub(p, "mlp"), h), None
+
+
 def _apply_layer(cfg, p, x, positions, kind: str, *, prefix_len: int = 0,
-                 enc_out=None):
-    """Full-sequence forward of one dense layer of ``kind``; a decoder
+                 enc_out=None, uses_moe: bool = False):
+    """Full-sequence forward of one layer of ``kind`` -> (x, aux), aux
+    the MoE block's load-balance loss (None in a dense layer); a decoder
     layer attends to ``enc_out`` after its self-attention."""
     h_in = L.apply_norm(cfg, x, sub(p, "ln_attn"))
     if kind == "M":
-        return x + L.mamba_block(cfg, sub(p, "mamba"), h_in)
+        return x + L.mamba_block(cfg, sub(p, "mamba"), h_in), None
     attn_kind = kind
     if kind == "Y":
         attn_kind = "W" if cfg.sliding_window else "F"
@@ -170,7 +189,8 @@ def _apply_layer(cfg, p, x, positions, kind: str, *, prefix_len: int = 0,
             hc = L.apply_norm(cfg, x, sub(p, "ln_cross"))
             x = x + _cross_attention(cfg, sub(p, "cross"), hc, enc_out)
     h2 = L.apply_norm(cfg, x, sub(p, "ln_mlp"))
-    return x + L.mlp_block(cfg, sub(p, "mlp"), h2)
+    out, aux = _ffn(cfg, p, h2, uses_moe)
+    return x + out, aux
 
 
 def _layers(p, prefix: str):
@@ -183,7 +203,9 @@ def _layers(p, prefix: str):
 
 def apply_stack(cfg, params, x, positions, *, prefix_len: int = 0,
                 enc_out=None):
-    """Forward through all layer groups; returns (x, moe_aux = 0).
+    """Forward through all layer groups; returns (x, moe_aux), the MoE
+    layers' load-balance losses summed in layer order (fp32 0 without
+    one).
     ``prefix_len`` > 0 gives the ``"F"`` layers a prefix LM's mask;
     ``enc_out`` is the encoder's output that decoder layers attend to.
 
@@ -191,11 +213,15 @@ def apply_stack(cfg, params, x, positions, *, prefix_len: int = 0,
     (``torch.unbind``), whose backward stacks the layers' gradients once.
     Indexing ``v[i]`` a layer would fill and add a zero tensor of the
     whole stacked leaf per layer in the backward: O(L^2) bytes."""
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, g in enumerate(layer_groups(cfg)):
         for p in _layers(params, f"layers/{gi}"):
-            x = _apply_layer(cfg, p, x, positions, g.kind,
-                             prefix_len=prefix_len, enc_out=enc_out)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = _apply_layer(cfg, p, x, positions, g.kind,
+                                  prefix_len=prefix_len, enc_out=enc_out,
+                                  uses_moe=g.uses_moe)
+            if aux is not None:
+                total = total + aux
+    return x, total
 
 
 # ---------------------------------------------------------------------------
@@ -203,7 +229,8 @@ def apply_stack(cfg, params, x, positions, *, prefix_len: int = 0,
 # ---------------------------------------------------------------------------
 
 
-def _decode_layer(cfg, p, x, cache, pos, kind: str, rope):
+def _decode_layer(cfg, p, x, cache, pos, kind: str, rope,
+                  uses_moe: bool = False):
     """One-token decode of one layer, x (B, 1, E) at ``pos`` (B,); writes
     the layer's ``cache`` (its flat dict of views) in place. ``rope`` is
     the step's RoPE table, shared by the layers. A ``"Y"`` layer's
@@ -237,7 +264,7 @@ def _decode_layer(cfg, p, x, cache, pos, kind: str, rope):
                                     cache["cross_kv/1"], mask_kind="full")
             x = x + out.reshape(b, 1, h * d) @ p["cross/wo"]
     h2 = L.apply_norm(cfg, x, sub(p, "ln_mlp"))
-    return x + L.mlp_block(cfg, sub(p, "mlp"), h2)
+    return x + _ffn(cfg, p, h2, uses_moe)[0]
 
 
 def _init_layer_cache(cfg, g: LayerGroup, batch: int, seq_len: int, dtype,
@@ -292,7 +319,7 @@ def decode_stack(cfg, params, x, cache, pos):
     for gi, g in enumerate(layer_groups(cfg)):
         prefix = f"layers/{gi}"
         for p, c in zip(_layers(params, prefix), _layers(cache, prefix)):
-            x = _decode_layer(cfg, p, x, c, pos, g.kind, rope)
+            x = _decode_layer(cfg, p, x, c, pos, g.kind, rope, g.uses_moe)
     return x
 
 

@@ -4,7 +4,9 @@ reduced configs and from the reference's weights (``params_from_jax``).
   * every decoding family at the reference test's lengths
     (``tests/test_decode_consistency.py``): llama 32, gemma3 192 (past
     its window: the ring buffer wraps), mamba2 64, hymba 128 (past its
-    window of 64), minitron 32, minicpm3 32 (MLA's absorbed latent):
+    window of 64), minitron 32, minicpm3 32 (MLA's absorbed latent),
+    qwen2-moe 32 and deepseek-v3 32 (MLA and MoE), the MoE ones under
+    the drop-free ragged dispatch as in the reference's test:
       - ``decode_step``'s logits against the reference's, step by step,
         rtol and atol 1e-4;
       - the caches after the last step, leaf by leaf by
@@ -20,6 +22,8 @@ reduced configs and from the reference's weights (``params_from_jax``).
     its own batch-of-one decode, and the batch equals the reference's
     step on the same per-row ``pos``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +39,8 @@ from test_torch_minitron import jax_weights
 
 DECODE_ARCHS = [("llama3.2-3b", 32), ("gemma3-1b", 192), ("mamba2-2.7b", 64),
                 ("hymba-1.5b", 128), ("minitron-4b", 32),
-                ("minicpm3-4b", 32)]
+                ("minicpm3-4b", 32), ("qwen2-moe-a2.7b", 32),
+                ("deepseek-v3-671b", 32)]
 B = 2
 
 
@@ -78,8 +83,13 @@ def _pos(i, b=B):
 def _decode_both(arch, seqlen, weights, extra=None, populate=None):
     """Both packages' decode of one seeded token batch from the same
     weights: the step logits (S, B, V) of each, the caches after the last
-    step, and the port's full forward logits."""
+    step, and the port's full forward logits. An MoE model runs the
+    ragged dispatch (the reduced configs' gshard drops differ between a
+    forward and the one-token steps, as the reference's test says)."""
     jcfg, tcfg = jax_get_reduced(arch), get_reduced(arch)
+    if tcfg.moe is not None:
+        jcfg = dataclasses.replace(jcfg, moe_impl="ragged")
+        tcfg = dataclasses.replace(tcfg, moe_impl="ragged")
     tp = params_from_jax(weights, device="cpu")
     jp = jax.tree.map(jnp.asarray, weights)
     toks = np.random.default_rng(1).integers(

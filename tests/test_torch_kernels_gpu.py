@@ -21,7 +21,11 @@ device streams (bitwise; the W layer within 1e-4), and the launch counts
 follow the graph's replays. The async engine's degenerate limit equals
 the synchronous loop on the card bitwise through B1, B2 and B3 with the
 same launches, and under stragglers its tiered store equals the dense
-one and a mid-buffer checkpoint resumes bitwise.
+one and a mid-buffer checkpoint resumes bitwise. The fp32 grouped
+product of the routed experts (G1) equals its plain version forward and
+backward, bf16 takes ``torch._grouped_mm``, an MoE decode step makes no
+host sync, and the reduced MoE's rounds under the ragged dispatch repeat
+bitwise in fp32 and bf16: run again, resumed, pipelined and tiered.
 """
 import math
 import sys
@@ -31,7 +35,11 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import B12_CASES  # noqa: E402  the card script's own table
+from chip_smoke import (  # noqa: E402  the card script's own tables
+    B12_CASES,
+    G1_BOUND,
+    G1_CASES,
+)
 from repro_torch.kernels.scaffold_update import megakernel as mk
 from repro_torch.kernels.scaffold_update import ops, ref
 from repro_torch.kernels.swa_attention import ops as swa_ops
@@ -1015,3 +1023,171 @@ def test_async_stragglers_tiered_and_resume_on_the_card(tmp_path):
     c = _trainer_state(resumed)
     for k in a:
         assert torch.equal(a[k], c[k]), k
+
+
+def _g1_operands(m, k, n, ends, gen):
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    b = torch.randn((len(ends), k, n), generator=gen, device="cuda")
+    return a, b, torch.tensor(ends, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("case", range(len(G1_CASES)))
+def test_grouped_mm_matches_plain(case):
+    """G1's forward and both gradients (through ``grouped_mm``'s
+    autograd) against the plain version's autograd, fp32, within
+    G1_BOUND of each result's largest element; an empty group's weight
+    gradient is zero; 3 launches (forward, input and weight gradient)."""
+    from repro_torch.kernels.grouped_mm import (
+        LAUNCHES,
+        grouped_mm,
+        reset_launches,
+    )
+    from repro_torch.kernels.grouped_mm import ref as gmm_ref
+
+    m, k, n, ends = G1_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(case)
+    a, b, e = _g1_operands(m, k, n, ends, gen)
+    d = torch.randn((m, n), generator=gen, device="cuda")
+    got, want = [], []
+    for fn, out in ((grouped_mm, got), (gmm_ref.grouped_mm_ref, want)):
+        aa, bb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        reset_launches()
+        y = fn(aa, bb, e)
+        y.backward(d)
+        out.append((y.detach(), aa.grad, bb.grad, dict(LAUNCHES)))
+    for x, w in zip(got[0][:3], want[0][:3]):
+        assert float((x - w).abs().max() / w.abs().max()) <= G1_BOUND
+    assert got[0][3] == {"grouped_mm": 3} and want[0][3] == {"grouped_mm": 0}
+    lo = (0,) + tuple(ends[:-1])
+    for g, (i, j) in enumerate(zip(lo, ends)):
+        if i == j:
+            assert not bool(got[0][2][g].any())
+
+
+def test_grouped_mm_bf16_takes_the_library_product():
+    """bf16 on the card is ``torch._grouped_mm`` (no launch of G1), within
+    bf16 rounding of the fp32 plain version; no host sync either way."""
+    from repro_torch.kernels.grouped_mm import (
+        LAUNCHES,
+        grouped_mm,
+        reset_launches,
+    )
+    from repro_torch.kernels.grouped_mm import ref as gmm_ref
+
+    a, b, e = _g1_operands(128, 256, 128, (40, 64, 64, 128),
+                           torch.Generator(device="cuda").manual_seed(7))
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = grouped_mm(a.bfloat16(), b.bfloat16(), e)
+        grouped_mm(a, b, e)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert LAUNCHES["grouped_mm"] == 1 and got.dtype == torch.bfloat16
+    want = gmm_ref.grouped_mm_ref(a.bfloat16().float(), b.bfloat16().float(),
+                                  e)
+    assert float((got.float() - want).abs().max() / want.abs().max()) < 1e-2
+
+
+def test_moe_decode_step_makes_no_host_sync():
+    """The reduced qwen2-moe's ragged decode step (fp32: G1) on the card
+    under ``set_sync_debug_mode("error")``, equal to the CPU's within
+    1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_reduced("qwen2-moe-a2.7b"),
+                              moe_impl="ragged")
+    p = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tok = torch.tensor([[3], [7]], dtype=torch.int32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        params = {k: v.to(dev) for k, v in p.items()}
+        cache = M.init_cache(cfg, 2, 4, device=dev)
+        pos = torch.zeros(2, dtype=torch.int32, device=dev)
+        tokens = tok.to(dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                outs[dev] = M.decode_step(cfg, params, cache, tokens, pos)[0]
+        finally:
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+    assert float((outs["cuda"].cpu() - outs["cpu"]).abs().max()) <= 1e-4
+
+
+def _moe_trainer(dtype, device, **kw):
+    """The reduced qwen2-moe under the ragged dispatch in ``dtype``, a
+    SCAFFOLD trainer of 4 clients, 2 a round, 2 local steps."""
+    import dataclasses
+    from functools import partial
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import FedRoundSpec
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.data import SyntheticLMFederated
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_reduced("qwen2-moe-a2.7b"),
+                              moe_impl="ragged", param_dtype=dtype,
+                              compute_dtype=dtype)
+    spec = FedRoundSpec(algorithm="scaffold", num_clients=4, num_sampled=2,
+                        local_steps=2, local_batch=1, eta_l=0.05)
+    return FederatedTrainer(
+        partial(M.loss_fn, cfg), partial(M.init_params, cfg, device=device),
+        spec, SyntheticLMFederated(4, cfg.vocab_size, 32), seed=0,
+        use_fused_update=True, device=device, **kw)
+
+
+def moe_rounds_apart(dtype, device, path):
+    """3 rounds of ``_moe_trainer``, then again: a second run, a trainer
+    resumed from the second's checkpoint at round 2, the pipelined
+    engine and the tiered store. Returns, for each of these, the state
+    leaves (x, c, every store row) and round losses that differ from the
+    first run's bitwise."""
+    from repro_torch.checkpoint import load_trainer, save_trainer
+
+    def run(tr, rounds=3):
+        for _ in range(rounds):
+            tr.run_round()
+        return tr
+
+    def apart(tr, want, losses):
+        got = _trainer_state(tr)
+        out = sorted(k for k in want if not torch.equal(want[k], got[k]))
+        if [h["loss"] for h in tr.history] != losses:
+            out.append("loss")
+        tr.close()
+        return out
+
+    first = run(_moe_trainer(dtype, device))
+    want, losses = _trainer_state(first), [h["loss"] for h in first.history]
+    first.close()
+    second = run(_moe_trainer(dtype, device), 2)
+    save_trainer(path, second)
+    resumed = _moe_trainer(dtype, device)
+    load_trainer(path + ".npz", resumed)
+    return {"again": apart(run(second, 1), want, losses),
+            "resumed": apart(run(resumed, 1), want, losses[2:]),
+            "pipelined": apart(run(_moe_trainer(dtype, device,
+                                                pipeline_depth=1)),
+                               want, losses),
+            "tiered": apart(run(_moe_trainer(dtype, device,
+                                             store="tiered")),
+                            want, losses)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_rounds_repeat_bitwise(dtype, tmp_path):
+    """The reduced qwen2-moe's ragged rounds on the card (fp32 through
+    G1, bf16 through ``torch._grouped_mm``; the combine in a fixed
+    order; the backward through the sort's gathers) repeat bitwise: a
+    second run, a resumed one, the pipelined engine and the tiered store
+    each equal the first run in x, c, every store row and every loss."""
+    apart = moe_rounds_apart(dtype, "cuda", str(tmp_path / "ck"))
+    assert apart == {k: [] for k in apart}, apart

@@ -4,9 +4,9 @@ init carried across by ``params_from_jax``); ``loss_fn`` and its gradient
 (autograd vs ``jax.grad``) agree to rtol 1e-4 per leaf, for the full
 cross-entropy and the vocab-chunked one. Every ported architecture's
 reduced config inits on the CPU with the analytic count, which equals
-the reference's at the published and reduced configs; the architectures
-the port refuses are exactly the reference's MoE ones (MLA is ported
-with minicpm3-4b).
+the reference's at the published and reduced configs; every architecture
+of the reference is ported, an unknown name raises ``KeyError``, and
+``count_active_params`` equals the reference's for the MoE ones.
 """
 import dataclasses
 from functools import partial
@@ -29,7 +29,9 @@ from repro_torch.models import model as TM
 
 RTOL = 1e-4
 PORTED = ("llama3.2-3b", "gemma3-1b", "mamba2-2.7b", "hymba-1.5b",
-          "minitron-4b", "paligemma-3b", "whisper-tiny", "minicpm3-4b")
+          "minitron-4b", "paligemma-3b", "whisper-tiny", "minicpm3-4b",
+          "qwen2-moe-a2.7b", "deepseek-v3-671b")
+MOE = ("qwen2-moe-a2.7b", "deepseek-v3-671b")
 
 
 @pytest.fixture(scope="module")
@@ -96,17 +98,10 @@ def test_params_from_jax_keeps_bf16_bits():
     assert np.array_equal(t.float().numpy(), np.asarray(a, np.float32))
 
 
-def test_unported_model_parts_raise():
-    # "M" and "Y" layers are ported (tests/test_torch_mamba.py,
-    # tests/test_torch_hymba.py), and MLA with minicpm3-4b
-    # (tests/test_torch_mla.py); MoE models are not
-    cfg = dataclasses.replace(get_reduced("llama3.2-3b"), moe=object())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.init_cache(cfg, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("qwen2-moe-a2.7b")
+def test_unknown_arch_raises():
+    for get in (get_config, get_reduced):
+        with pytest.raises(KeyError, match="unknown arch 'gpt-5'"):
+            get("gpt-5")
 
 
 @pytest.fixture
@@ -137,12 +132,17 @@ def test_param_count_matches_jax(arch, preset):
         JM.count_params_analytic(get[1](arch))
 
 
-def test_not_ported_is_exactly_mla_and_moe():
-    # MLA alone is ported (minicpm3-4b); deepseek-v3 pairs it with MoE
+def test_every_jax_arch_is_ported():
     moe = {a for a in ARCH_IDS if jax_get_config(a).moe is not None}
-    assert "deepseek-v3-671b" in moe and "minicpm3-4b" not in moe
-    assert set(TC._NOT_PORTED) == moe
-    assert set(TC._ARCHS) == set(PORTED) == set(ARCH_IDS) - moe
-    for arch in TC._NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_reduced(arch)
+    assert moe == set(MOE)
+    assert set(TC._ARCHS) == set(PORTED) == set(ARCH_IDS)
+
+
+@pytest.mark.parametrize("preset", ["full", "reduced"])
+@pytest.mark.parametrize("arch", MOE)
+def test_active_param_count_matches_jax(arch, preset):
+    get = {"full": (get_config, jax_get_config),
+           "reduced": (get_reduced, jax_get_reduced)}[preset]
+    got = TM.count_active_params(get[0](arch))
+    assert got == JM.count_active_params(get[1](arch))
+    assert got < TM.count_params_analytic(get[0](arch))
