@@ -209,6 +209,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
      layer (256 experts, top 8, MLA), bf16, LoRA r 8 without the routed
      experts through ``launch.train.main`` (B1 8), its MLA + MoE decode
      against its prefill as in 47
+  49. the dry-run census (``repro_torch.launch.census``) on the card:
+     gemma3-1b x train_4k at its published widths (26 layers, bf16, seq
+     4096, S 16, K 4 and b 4 of ``default_round_spec``), local_batch
+     then S cut to the largest the census puts within
+     ``LM_MEMORY_LIMIT``; that round run for real (B1 and B5), its
+     ``max_memory_allocated`` within ``CENSUS_MEMORY_BOUND`` of the
+     census's peak (``_lm_plan``'s figure logged beside), its launches
+     equal to the census's, the census's flops over the round's wall
+     time as a share of 989 TFLOP/s; gemma3-1b x decode_32k (batch 128,
+     caches at 32768) the same way with one ``decode_step``; census
+     only for llama3.2-3b and qwen2-moe-a2.7b x train_4k. The censuses
+     (host-bound) run in a process of their own (``census_job``, one
+     thread at the lowest priority), started after phase 2's wait,
+     beside the phases that follow: each logs beside its time that it
+     overlapped the job. The job's fake CUDA tensors open a CUDA
+     context on the card (PyTorch's ``FakeTensorMode`` allocates one
+     element to do so), which allocates nothing else
 
 Every decode of phases 40-48 runs under
 ``torch.cuda.set_sync_debug_mode("error")``: a host sync fails it.
@@ -225,11 +242,13 @@ or of the JAX package.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import io
 import json
 import math
+import os
 import re
 import resource
 import statistics
@@ -6048,15 +6067,273 @@ def phase_deepseek(result):
     _merged_moe_decode("deepseek served (MLA + MoE)", cfg, served)
 
 
+CENSUS_MEMORY_BOUND = 0.10  # census peak against max_memory_allocated
+H100_BF16_FLOPS = 989e12  # dense bf16 (NVIDIA H100 SXM5 data sheet)
+
+
+def _census_fit(cfg, shape, spec):
+    """Cut local_batch, then S, to the largest the census puts within
+    ``LM_MEMORY_LIMIT`` (the peak read off one client's one step: every
+    step of a round holds the same, and S does not move it, the c_i rows
+    lying on the host). A step's peak is affine in local_batch, so the
+    census at the spec's b and at 1 name the candidate, which the census
+    then confirms (and steps down from while it does not fit). Returns
+    ``(spec, shape)`` of the cut and logs each cut ``reduced:``."""
+    from repro_torch.launch import dryrun as D
+
+    def peak(sp):
+        one = dataclasses.replace(sp, num_sampled=1, local_steps=1,
+                                  num_clients=2)
+        sh = dataclasses.replace(shape, global_batch=sp.local_batch)
+        t0 = time.perf_counter()
+        c = D.step_census(cfg, sh, one, device="cuda")
+        log(f"dryrun census: {cfg.name} seq {shape.seq_len} local_batch "
+            f"{sp.local_batch}: one step's peak {c.peak_bytes / 1e9:.2f} GB"
+            f" ({time.perf_counter() - t0:.1f} s)")
+        return c.peak_bytes
+
+    base = spec
+    seen = {spec.local_batch: peak(spec)}
+    if seen[spec.local_batch] > LM_MEMORY_LIMIT and spec.local_batch > 1:
+        b_top = spec.local_batch
+        seen[1] = peak(dataclasses.replace(spec, local_batch=1))
+        per_b = (seen[b_top] - seen[1]) / (b_top - 1)
+        fit = [b for b in range(1, b_top)
+               if seen[1] + (b - 1) * per_b <= LM_MEMORY_LIMIT]
+        spec = dataclasses.replace(spec, local_batch=max(fit or [1]))
+        while spec.local_batch > 1:
+            if spec.local_batch not in seen:
+                seen[spec.local_batch] = peak(spec)
+            if seen[spec.local_batch] <= LM_MEMORY_LIMIT:
+                break
+            spec = dataclasses.replace(spec, local_batch=spec.local_batch - 1)
+    if seen.get(spec.local_batch, 0) > LM_MEMORY_LIMIT:
+        raise AssertionError(f"dryrun: {cfg.name} does not fit at b "
+                             f"{spec.local_batch} (S does not move a "
+                             f"step's peak)")
+    for what in ("local_batch", "num_sampled"):
+        if getattr(spec, what) != getattr(base, what):
+            log(f"reduced: {cfg.name} {shape.name} {what} "
+                f"{getattr(base, what)} -> {getattr(spec, what)} (the "
+                f"census's peak within {LM_MEMORY_LIMIT / 1e9:.0f} GB)")
+    return spec, dataclasses.replace(
+        shape, global_batch=spec.num_sampled * spec.local_steps
+        * spec.local_batch)
+
+
+CENSUS_OTHERS = ("llama3.2-3b", "qwen2-moe-a2.7b")  # phase 49's census only
+
+
+def census_job(out_dir: str) -> None:
+    """Phase 49's censuses (no allocation; the census is host-bound, 25-80
+    s a round census on the card's machine), run in a process of their
+    own beside the earlier phases: gemma3-1b x train_4k's cut
+    (``_census_fit``), its round's census at the cut and decode_32k's,
+    written to ``<out_dir>/gemma3-1b.json``; then the census-only pair
+    through the dry run's entry point (``launch.dryrun.main``)."""
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun as D
+
+    # yield the host to the phases beside it: one thread, lowest priority
+    os.nice(19)
+    torch.set_num_threads(1)
+    out = Path(out_dir)
+    cfg = D.make_config("gemma3-1b")
+    spec, shape = _census_fit(cfg, SHAPES["train_4k"],
+                              D.make_round_spec("gemma3-1b",
+                                                SHAPES["train_4k"]))
+    res = {"spec": {k: getattr(spec, k) for k in
+                    ("num_sampled", "local_steps", "local_batch")},
+           "global_batch": shape.global_batch}
+    for name, sh, sp in (("train", shape, spec),
+                         ("decode", SHAPES["decode_32k"], None)):
+        t0 = time.perf_counter()
+        res[name] = dataclasses.asdict(D.step_census(cfg, sh, sp,
+                                                     device="cuda"))
+        res[name]["seconds"] = time.perf_counter() - t0
+    (out / "gemma3-1b.json").write_text(json.dumps(res))
+    for other in CENSUS_OTHERS:
+        D.main(["--arch", other, "--shape", "train_4k", "--out-dir",
+                str(out)])
+
+
+def start_census_job():
+    """Start ``census_job`` in a process of its own (its output in
+    ``OUT/dryrun/job.txt``); phase 49 waits for it."""
+    out_dir = OUT / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
+            f"{str(ROOT / 'src')!r}]; import chip_smoke; "
+            f"chip_smoke.census_job({str(out_dir)!r})")
+    with open(out_dir / "job.txt", "w") as f:
+        return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                stdout=f, stderr=subprocess.STDOUT)
+
+
+def _census_vs_card(tag, cen, peak, counts, plan=None):
+    """Hold a step's measured peak and launches to its census."""
+    err = (cen.peak_bytes - peak) / peak
+    beside = (f"; _lm_plan {plan / 1e9:.2f} GB ({(plan - peak) / peak:+.1%})"
+              if plan is not None else "")
+    log(f"{tag}: census peak {cen.peak_bytes / 1e9:.2f} GB against "
+        f"max_memory_allocated {peak / 1e9:.2f} GB ({err:+.1%}, bound "
+        f"{CENSUS_MEMORY_BOUND:.0%}){beside}")
+    want = {k: cen.kernel_launches.get(k, 0) for k in counts}
+    log(f"{tag}: launches {counts}; the census counted "
+        f"{cen.kernel_launches}")
+    if set(cen.kernel_launches) - set(counts) or counts != want:
+        raise AssertionError(f"{tag}: launches {counts} != the census's "
+                             f"{cen.kernel_launches}")
+    if abs(err) > CENSUS_MEMORY_BOUND:
+        raise AssertionError(f"{tag}: census peak {cen.peak_bytes} vs "
+                             f"measured {peak}: {err:+.1%}")
+
+
+def phase_dryrun(result, job):
+    """Phase 49: the dry-run census against the card (the docstring's
+    49): the censuses of ``census_job`` (started after phase 2), then
+    gemma3-1b x train_4k at the census's cut and x decode_32k run for
+    real and held to them; the census-only pair logged."""
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import census as C
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+
+    out_dir = OUT / "dryrun"
+    try:
+        rc = job.wait(timeout=900)
+    finally:
+        job.kill()
+    for line in (out_dir / "job.txt").read_text().splitlines():
+        if line.startswith(("dryrun census", "reduced:")):
+            log(line)
+    if rc:
+        raise AssertionError(f"dryrun: the census job exited {rc}: "
+                             f"{(out_dir / 'job.txt').read_text()[-2000:]}")
+    job = json.loads((out_dir / "gemma3-1b.json").read_text())
+    secs = {k: job[k].pop("seconds") for k in ("train", "decode")}
+    arch = "gemma3-1b"
+    cfg = D.make_config(arch)
+    spec = dataclasses.replace(D.make_round_spec(arch, SHAPES["train_4k"]),
+                               **job["spec"])
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                global_batch=job["global_batch"])
+    cen = C.Census(**job["train"])
+    log(f"dryrun census: {arch} train_4k S {spec.num_sampled} K "
+        f"{spec.local_steps} b {spec.local_batch}: peak "
+        f"{cen.peak_bytes / 1e9:.2f} GB, {cen.flops / 1e12:.1f} TFLOP, "
+        f"{cen.bytes / 1e12:.1f} TB unfused, {cen.ops} ops, launches "
+        f"{cen.kernel_launches} ({secs['train']:.1f} s)")
+    plan = _lm_plan(cfg, shape.seq_len, spec.local_batch)[2]
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(49)
+    x = M.init_params(cfg, gen)
+    c = {k: torch.zeros_like(v) for k, v in x.items()}
+    c_i = {k: torch.zeros((spec.num_sampled,) + tuple(v.shape),
+                          dtype=v.dtype) for k, v in x.items()}  # host
+    lead = (spec.num_sampled, spec.local_steps, spec.local_batch,
+            shape.seq_len)
+    batch = {k: torch.randint(0, cfg.vocab_size, lead, generator=gen,
+                              device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    x_new, _, _, metrics = D.train_step(cfg, spec)(x, c, c_i, batch)
+    torch.cuda.synchronize()
+    secs_round = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    loss = float(metrics["loss"])
+    bad = [k for k, v in x_new.items() if not bool(torch.isfinite(v).all())]
+    if not math.isfinite(loss) or bad:
+        raise AssertionError(f"dryrun {arch} train_4k: loss {loss}, "
+                             f"non-finite leaves {bad}")
+    tag = f"dryrun {arch} train_4k"
+    _census_vs_card(tag, cen, peak, counts, plan)
+    share = cen.flops / secs_round / H100_BF16_FLOPS
+    log(f"{tag}: round {secs_round:.2f} s, loss {loss:.4f}; census "
+        f"{cen.flops / 1e12:.1f} TFLOP over it = {share:.1%} of "
+        f"{H100_BF16_FLOPS / 1e12:.0f} TFLOP/s")
+    if not 0 < share <= 1:
+        raise AssertionError(f"{tag}: flop share {share}")
+    result.setdefault("b1_paths", {})[tag] = counts["scaffold_update"]
+    result.setdefault("b5_paths", {})[tag] = counts["swa_attention"]
+    del x, c, c_i, batch, x_new, metrics
+    torch.cuda.empty_cache()
+
+    shape = SHAPES["decode_32k"]
+    cen = C.Census(**job["decode"])
+    log(f"dryrun census: {arch} decode_32k: peak "
+        f"{cen.peak_bytes / 1e9:.2f} GB, {cen.flops / 1e9:.1f} GFLOP, "
+        f"launches {cen.kernel_launches} ({secs['decode']:.1f} s)")
+    base = torch.cuda.memory_allocated()
+    params = M.init_params(cfg, gen)
+    b = shape.global_batch
+    cache = M.init_cache(cfg, b, shape.seq_len)
+    tokens = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pos = torch.randint(0, shape.seq_len, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = M.decode_step(cfg, params, cache, tokens, pos)
+    torch.cuda.synchronize()
+    secs_step = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    if (tuple(logits.shape) != (b, 1, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"dryrun {arch} decode_32k: logits "
+                             f"{tuple(logits.shape)}")
+    _census_vs_card(f"dryrun {arch} decode_32k", cen, peak, counts)
+    log(f"dryrun {arch} decode_32k: one step {secs_step * 1e3:.1f} ms (the "
+        f"first, cold); census {cen.flops / 1e9:.1f} GFLOP")
+    del params, cache, tokens, pos, logits
+    torch.cuda.empty_cache()
+
+    for other in CENSUS_OTHERS:
+        o = json.loads((out_dir / f"{other}__train_4k__1x1.json").read_text())
+        mem, cost = o["memory"], o["cost_struct"]
+        log(f"dryrun census: {other} train_4k S "
+            f"{o['round_spec']['num_sampled']} K "
+            f"{o['round_spec']['local_steps']} b "
+            f"{o['round_spec']['local_batch']} (launch.dryrun.main, device "
+            f"{o['device']}): peak {mem['peak_bytes'] / 1e9:.2f} GB (fits 80 "
+            f"GB: {mem['fits_80gb']}), {cost['flops'] / 1e12:.1f} TFLOP, "
+            f"launches {cost['kernel_launches']}, no allocation "
+            f"({o['lower_s']:.1f} s)")
+
+
+CENSUS_JOB: list = []  # the census job's process while it runs
+
+
 def _phase(fn, *args):
     """Run one phase and log its seconds (host clock, the card
-    synchronised after it)."""
+    synchronised after it), and, while the census job runs, that the
+    phase overlapped it."""
     import torch
 
     t0 = time.perf_counter()
     out = fn(*args)
     torch.cuda.synchronize()
-    log(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    beside = ""
+    if CENSUS_JOB:
+        beside = " (beside the census job)"
+        if CENSUS_JOB[0].poll() is not None:
+            beside = " (the census job ended during it)"
+            CENSUS_JOB.clear()
+    log(f"{fn.__name__}: {time.perf_counter() - t0:.1f} s{beside}")
     return out
 
 
@@ -6087,6 +6364,9 @@ def main() -> int:
     _phase(phase_lm_full, result)
     _phase(phase_lm_momentum, result)
     _phase(phase_build_wait, pending)
+    census = start_census_job()  # phase 49's censuses, host-bound
+    atexit.register(census.kill)
+    CENSUS_JOB.append(census)
     _phase(phase_b3_plain)
     _phase(phase_b4_plain)
     from repro_torch.data import make_similarity_quadratics
@@ -6132,6 +6412,7 @@ def main() -> int:
     _phase(phase_qwen_serve, result)
     _phase(phase_qwen_full, result)
     _phase(phase_deepseek, result)
+    _phase(phase_dryrun, result, census)
     log(f"the profiler's own processing: "
         f"{sum(PROFILER_SECONDS.values()):.1f} s in all (" + ", ".join(
             f"{k} {v:.1f}" for k, v in PROFILER_SECONDS.items()) + ")")

@@ -1,9 +1,8 @@
 """Config dataclasses for models and federated rounds.
 
 A copy of the JAX package's ``configs/base.py`` (``MLAConfig``,
-``MoEConfig``, ``SSMConfig``, ``EncoderConfig``, ``ModelConfig`` and
-``FedRoundSpec``),
-field for field, so that a spec means the same in both packages.
+``MoEConfig``, ``SSMConfig``, ``EncoderConfig``, ``ModelConfig``,
+``InputShape``, ``FedRoundSpec`` and ``TrainConfig``), field for field, so that a spec means the same in both packages.
 ``FedRoundSpec`` validates its names against the port's live
 registries, as the reference does, so a name registered at run time
 (``repro_torch.core.register_algorithm``, ``register_compressor``, ...)
@@ -131,6 +130,14 @@ class ModelConfig:
         from repro_torch.models.model import count_params_analytic
 
         return count_params_analytic(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -322,3 +329,16 @@ class _CompressUplinkMirror(int):
 
 FedRoundSpec.compress_uplink = property(
     lambda self: _CompressUplinkMirror(self.compress != "none"))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig
+    round_spec: FedRoundSpec
+    seq_len: int = 1024
+    rounds: int = 100
+    seed: int = 0
+    log_every: int = 10
+    eval_every: int = 50
+    checkpoint_every: int = 0
+    checkpoint_dir: str = ""

@@ -358,7 +358,7 @@ def store_families(spec):
 
 def _round_over_store(grad_fn, spec, server: ServerState, client_store, t,
                       slots, batches, weights, comp_key, priv_key,
-                      use_fused_update: bool) -> RoundOutput:
+                      use_fused_update: bool, shard_fn=None) -> RoundOutput:
     """Gather rows ``slots`` of every row family of ``client_store``, run
     the round at absolute index ``t`` (the compression and privacy keys
     folded by it), and write the new rows back over rows ``slots`` in
@@ -373,7 +373,7 @@ def _round_over_store(grad_fn, spec, server: ServerState, client_store, t,
         c_i=rows["c_i"], uplink_residual=rows.get("residual"),
         solver_slots=rows.get("solver"), weights=weights)
     out = run_round(grad_fn, spec, server, clients, batches,
-                    use_fused_update=use_fused_update,
+                    use_fused_update=use_fused_update, shard_fn=shard_fn,
                     comp_key=None if comp_key is None else comp_key.fold_in(t),
                     priv_key=None if priv_key is None else priv_key.fold_in(t),
                     dp_round=t)
@@ -387,7 +387,7 @@ def _round_over_store(grad_fn, spec, server: ServerState, client_store, t,
 def scan_round(grad_fn, spec, server: ServerState, client_store, t, *,
                data, batch_fn, sample_key, data_key, comp_key=None,
                priv_key=None, sizes=None,
-               use_fused_update: bool = False) -> RoundOutput:
+               use_fused_update: bool = False, shard_fn=None) -> RoundOutput:
     """One round of the scanned engine at absolute round ``t``: the
     cohort ``device_sample_ids(sample_key, t, N, S)``, its batches
     ``batch_fn(data, ids, data_key.fold_in(t))``, its rows gathered from
@@ -403,13 +403,14 @@ def scan_round(grad_fn, spec, server: ServerState, client_store, t, *,
     return _round_over_store(
         grad_fn, spec, server, client_store, t, ids, batches,
         None if sizes is None else sizes.index_select(0, ids), comp_key,
-        priv_key, use_fused_update)
+        priv_key, use_fused_update, shard_fn)
 
 
 def scan_cohort_round(grad_fn, spec, server: ServerState, cohort_store, t,
                       *, data, batch_fn, round_ids, slot_ids, data_key,
                       comp_key=None, priv_key=None, weights=None,
-                      use_fused_update: bool = False) -> RoundOutput:
+                      use_fused_update: bool = False,
+                      shard_fn=None) -> RoundOutput:
     """One round of the tiered scanned engine at absolute round ``t``,
     over a cohort-sized store: ``round_ids`` (S,) are the round's global
     client ids, which reach only the data gather; ``slot_ids`` (S,) the
@@ -420,7 +421,7 @@ def scan_cohort_round(grad_fn, spec, server: ServerState, cohort_store, t,
     batches = batch_fn(data, round_ids, data_key.fold_in(t))
     return _round_over_store(grad_fn, spec, server, cohort_store, t,
                              slot_ids, batches, weights, comp_key, priv_key,
-                             use_fused_update)
+                             use_fused_update, shard_fn)
 
 
 def _check_store(spec, client_store, leading: str) -> None:
@@ -467,6 +468,8 @@ def run_rounds(grad_fn, spec, server: ServerState, client_store, R: int, *,
                   compression and privacy streams, folded by the round.
     sizes:        optional ``(N,)`` fp32 per-client sizes for
                   ``spec.weighted_aggregation``.
+    shard_fn:     the param-tree constraint ``run_round`` applies under
+                  client_sequential (the trainer passes none).
 
     Every stream is a pure function of (root key, absolute round), so R
     rounds here equal R calls of ``run_round`` on the same streams, and
@@ -474,8 +477,6 @@ def run_rounds(grad_fn, spec, server: ServerState, client_store, R: int, *,
     metrics)``, each metric stacked ``(R,)`` (the byte counts int64, the
     float64 ``dp_epsilon`` float64).
     """
-    if shard_fn is not None:
-        raise NotImplementedError("shard_fn: the port runs on one device")
     _check_store(spec, client_store, "N")
     history = []
     for r in range(R):
@@ -483,7 +484,8 @@ def run_rounds(grad_fn, spec, server: ServerState, client_store, R: int, *,
                          start_round + r, data=data, batch_fn=batch_fn,
                          sample_key=sample_key, data_key=data_key,
                          comp_key=comp_key, priv_key=priv_key, sizes=sizes,
-                         use_fused_update=use_fused_update)
+                         use_fused_update=use_fused_update,
+                         shard_fn=shard_fn)
         server = out.server
         history.append(out.metrics)
     return server, client_store, _stack_metrics(history)
@@ -517,8 +519,6 @@ def run_rounds_cohort(grad_fn, spec, server: ServerState, cohort_store,
     Returns ``(server, cohort_store, metrics)`` as ``run_rounds`` does;
     the caller writes the union's rows back to the population.
     """
-    if shard_fn is not None:
-        raise NotImplementedError("shard_fn: the port runs on one device")
     _check_store(spec, cohort_store, "U")
     history = []
     for r in range(R):
@@ -527,7 +527,7 @@ def run_rounds_cohort(grad_fn, spec, server: ServerState, cohort_store,
             batch_fn=batch_fn, round_ids=round_ids[r], slot_ids=slot_ids[r],
             data_key=data_key, comp_key=comp_key, priv_key=priv_key,
             weights=None if weights is None else weights[r],
-            use_fused_update=use_fused_update)
+            use_fused_update=use_fused_update, shard_fn=shard_fn)
         server = out.server
         history.append(out.metrics)
     return server, cohort_store, _stack_metrics(history)

@@ -70,6 +70,13 @@ class LocalSolver:
         ``(y, slots')``."""
         raise NotImplementedError
 
+    def shard_slots(self, shard_fn, slots):
+        """Pin the param-shaped slot entries with ``shard_fn``, the
+        caller's param-tree constraint (slots nest param trees under slot
+        keys, so a solver with param-sized slots applies it per entry).
+        Default: no param-shaped slots, the slots pass through."""
+        return slots
+
     def check_steps(self, spec, slots, k_steps: int) -> None:
         """Validate the slots against the actual number of local steps
         (the batches' leading dimension)."""
@@ -120,6 +127,9 @@ class MomentumSolver(LocalSolver):
                                      device=v.device)
                       for k, v in x.items()}}
 
+    def shard_slots(self, shard_fn, slots):
+        return {"m": shard_fn(slots["m"])}
+
     def step(self, spec, slots, y, grads, correction, t_local, *,
              use_fused_update: bool = False):
         eta, beta, m = spec.eta_l, spec.local_momentum, slots["m"]
@@ -153,6 +163,10 @@ class AdamSolver(LocalSolver):
         return {"m": {k: zeros(v) for k, v in x.items()},
                 "v": {k: zeros(v) for k, v in x.items()},
                 "t": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def shard_slots(self, shard_fn, slots):
+        return {"m": shard_fn(slots["m"]), "v": shard_fn(slots["v"]),
+                "t": slots["t"]}
 
     def step(self, spec, slots, y, grads, correction, t_local, *,
              use_fused_update: bool = False):
@@ -281,7 +295,7 @@ def megakernel_incompatibility(grad_fn, solver: LocalSolver, *,
 
 
 def _run_megakernel_steps(spec, y0, batches, *, solver: LocalSolver, slots,
-                          correction, k_steps: int):
+                          correction, shard_fn, k_steps: int):
     """All K steps in one launch (callers cleared
     :func:`megakernel_incompatibility` first): B3 with sgd's constant or
     sgd_sched's table, B4 with momentum's slot."""
@@ -296,7 +310,11 @@ def _run_megakernel_steps(spec, y0, batches, *, solver: LocalSolver, slots,
         y0, correction, batches, eta_table,
         m=slots["m"] if is_momentum else None,
         beta=spec.local_momentum if is_momentum else 0.0, device=dev)
-    return y_K, ({"m": m_K} if is_momentum else slots), losses.mean()
+    slots_K = {"m": m_K} if is_momentum else slots
+    if shard_fn is not None:
+        y_K = shard_fn(y_K)
+        slots_K = solver.shard_slots(shard_fn, slots_K)
+    return y_K, slots_K, losses.mean()
 
 
 def run_local_steps(
@@ -311,6 +329,7 @@ def run_local_steps(
     prox_mu: float = 0.0,
     prox_center=None,
     use_fused_update: bool = False,
+    shard_fn=None,
 ) -> Tuple[Any, Any, torch.Tensor]:
     """K local solver steps; returns ``(y_K, slots_K, mean local loss)``.
 
@@ -318,7 +337,9 @@ def run_local_steps(
     starts from ``solver.init`` (a fresh client); slots that are passed in
     are the caller's to give up, as the steps update them in place. The
     FedProx prox term, when active, is accumulated in fp32 as in the
-    reference.
+    reference. ``shard_fn``, a param-tree constraint, pins the client's
+    model and its param-shaped slots after every step (the reference's
+    FSDP carry pin).
     """
     if solver is None:
         solver = get_local_solver(resolve_local_solver(spec))
@@ -332,7 +353,7 @@ def run_local_steps(
             batches=batches) is None:
         return _run_megakernel_steps(
             spec, y0, batches, solver=solver, slots=slots,
-            correction=correction, k_steps=k_steps)
+            correction=correction, shard_fn=shard_fn, k_steps=k_steps)
 
     y = {k: v.clone() for k, v in y0.items()}
     losses = []
@@ -345,6 +366,9 @@ def run_local_steps(
                      for k, g in grads.items()}
         y, slots = solver.step(spec, slots, y, grads, correction, t,
                                use_fused_update=use_fused_update)
+        if shard_fn is not None:
+            y = shard_fn(y)
+            slots = solver.shard_slots(shard_fn, slots)
         del grads
         losses.append(metrics["loss"])
     return y, slots, torch.stack(losses).mean()
@@ -352,7 +376,8 @@ def run_local_steps(
 
 def local_sgd(grad_fn: Callable, y0, batches, eta_l: float, *,
               correction=None, prox_mu: float = 0.0, prox_center=None,
-              use_fused_update: bool = False) -> Tuple[Any, torch.Tensor]:
+              use_fused_update: bool = False,
+              shard_fn=None) -> Tuple[Any, torch.Tensor]:
     """The reference's back-compat seed surface: K plain corrected SGD
     steps, :func:`run_local_steps` with the ``sgd`` solver; returns
     ``(y_K, mean local loss)``."""
@@ -360,5 +385,5 @@ def local_sgd(grad_fn: Callable, y0, batches, eta_l: float, *,
         grad_fn, types.SimpleNamespace(eta_l=eta_l), y0, batches,
         solver=get_local_solver("sgd"), correction=correction,
         prox_mu=prox_mu, prox_center=prox_center,
-        use_fused_update=use_fused_update)
+        use_fused_update=use_fused_update, shard_fn=shard_fn)
     return y, loss

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.api import (
@@ -77,12 +78,13 @@ def _merge_step_batches(batches):
 
 
 def client_update(grad_fn, spec, x, c, c_i, batches, solver_slots=None,
-                  use_fused_update: bool = False):
+                  use_fused_update: bool = False, shard_fn=None):
     """Local work of one sampled client.
 
     batches: dict with leaves (K, b, ...). Returns
     ``(dy, dc, c_i_new, solver_slots_new, loss)`` with dy = y_K - x and
-    dc = c_i_new - c_i.
+    dc = c_i_new - c_i. ``shard_fn`` pins the local steps' carry
+    (``run_local_steps``).
     """
     algo = get_algorithm(spec.algorithm)
     correction = algo.local_correction(spec, x, c, c_i)
@@ -93,7 +95,7 @@ def client_update(grad_fn, spec, x, c, c_i, batches, solver_slots=None,
         grad_fn, spec, x, batches,
         slots=solver_slots, correction=correction,
         prox_mu=prox_mu, prox_center=prox_center,
-        use_fused_update=use_fused_update,
+        use_fused_update=use_fused_update, shard_fn=shard_fn,
     )
     del correction
     c_i_new, dc = algo.client_control_update(
@@ -155,7 +157,8 @@ def _write_row(rows, i, new, s: int, place):
 
 def client_block(grad_fn, spec, x_cl, c_cl, rows: ClientRoundState, i: int,
                  batch, *, fresh_slots: bool, dev, k_up=None, k_priv=None,
-                 position=None, use_fused_update: bool = False):
+                 position=None, use_fused_update: bool = False,
+                 shard_fn=None):
     """Client ``i`` of a cohort as a round runs it: its rows to ``dev``,
     ``client_update`` from the broadcast ``(x_cl, c_cl)``, then the clip,
     the client's noise and the uplink codec's round trip.
@@ -171,6 +174,9 @@ def client_block(grad_fn, spec, x_cl, c_cl, rows: ClientRoundState, i: int,
     position: the client's fold in the keyed draws (default ``i``):
               the codec draws at ``k_up.fold_in(position)``, the noise at
               ``k_priv.fold_in(position)``.
+    shard_fn: the param-tree constraint of a client_sequential round
+              (``run_round``): it pins the local steps' carry and the
+              client's new c_i, residual and slot rows.
 
     The round and the async engine's dispatch groups both run clients
     through this block. Returns ``(rows, dy, dc, loss, clip_flag)``:
@@ -180,7 +186,7 @@ def client_block(grad_fn, spec, x_cl, c_cl, rows: ClientRoundState, i: int,
     algo = get_algorithm(spec.algorithm)
     up = get_compressor(spec.compress)
     priv = get_privatizer(spec.privatizer)
-    stateful_solver = get_local_solver(resolve_local_solver(spec)).stateful
+    solver = get_local_solver(resolve_local_solver(spec))
     position = i if position is None else position
     c_i_all = rows.c_i
     lead = next(iter(c_i_all.values()))
@@ -191,12 +197,16 @@ def client_block(grad_fn, spec, x_cl, c_cl, rows: ClientRoundState, i: int,
                tree_nest_slots(_rows_to(slots_all, i, dev, copy=True)))
     dy, dc, c_i_new, slots_new, loss = client_update(
         grad_fn, spec, x_cl, c_cl, c_i, batch, solver_slots=slots_i,
-        use_fused_update=use_fused_update)
+        use_fused_update=use_fused_update, shard_fn=shard_fn)
     del c_i, slots_i
+    if shard_fn is not None:
+        c_i_new = shard_fn(c_i_new)
+        if solver.stateful:
+            slots_new = solver.shard_slots(shard_fn, slots_new)
     if algo.stateful_clients:
         _write_row(c_i_all, i, c_i_new, n, place)
     del c_i_new
-    if stateful_solver:
+    if solver.stateful:
         slots_all = _write_row(slots_all, i, tree_flatten_slots(slots_new),
                                n, place)
     del slots_new
@@ -212,6 +222,8 @@ def client_block(grad_fn, spec, x_cl, c_cl, rows: ClientRoundState, i: int,
         dy, res_new = up.round_trip(
             spec, dy, res_i,
             key=k_up.fold_in(position) if up.needs_key else None)
+        if shard_fn is not None and res_new is not None:
+            res_new = shard_fn(res_new)
         if up.stateful:
             res_all = _write_row(res_all, i, res_new, n, place)
         del res_i, res_new
@@ -221,8 +233,8 @@ def client_block(grad_fn, spec, x_cl, c_cl, rows: ClientRoundState, i: int,
 
 
 def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
-              batches, use_fused_update: bool = False, comp_key=None,
-              priv_key=None, dp_round=None) -> RoundOutput:
+              batches, use_fused_update: bool = False, shard_fn=None,
+              comp_key=None, priv_key=None, dp_round=None) -> RoundOutput:
     """One communication round over the S sampled clients.
 
     server:   ``ServerState`` on the model's device.
@@ -241,6 +253,11 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
               ``fold_in(0).fold_in(i)``, the server ``fold_in(1)``.
     dp_round: the absolute round index, needed when privatizing (the
               metric ``dp_epsilon`` is ``epsilon(dp_round + 1)``).
+    shard_fn: a param-tree constraint (a function of a tree returning a
+              like tree), applied under client_sequential where the
+              reference applies it: the local steps' carry, the running
+              sums and each client's new rows. client_parallel ignores
+              it, as the reference's vmapped round does.
 
     The client rows are the round's to update: each client's new c_i,
     residual and slot rows are written over its input rows (the host
@@ -294,6 +311,7 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
 
     parallel = spec.strategy == "client_parallel"
     if parallel:
+        shard_fn = None
         # fp32 sums of the stacked deltas (the mean over the client axis)
         dy_acc = {k: torch.zeros(v.shape, dtype=torch.float32, device=dev)
                   for k, v in x.items()}
@@ -305,8 +323,9 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
         # the reference's scan carry: zeros in the model's dtype
         dy_acc = {k: torch.zeros_like(v) for k, v in x.items()}
         dc_acc = {k: torch.zeros_like(v) for k, v in c.items()}
+        # the uniform weight 1/s rounded to fp32, made on the host
         w_seq = (wnorm if weights is not None
-                 else torch.full((s,), 1.0 / s, dtype=torch.float32).tolist())
+                 else np.full((s,), 1.0 / s, dtype=np.float32).tolist())
     losses, clip_flags = [], []
     rows = ClientRoundState(c_i=c_i_all, uplink_residual=res_all,
                             weights=weights, solver_slots=slots_all)
@@ -315,13 +334,15 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
             grad_fn, spec, x_cl, c_cl, rows, i,
             {k: v[i] for k, v in batches.items()}, fresh_slots=fresh_slots,
             dev=dev, k_up=k_up, k_priv=k_priv,
-            use_fused_update=use_fused_update)
+            use_fused_update=use_fused_update, shard_fn=shard_fn)
         if flag is not None:
             clip_flags.append(flag)
         if parallel:
             norms.append(tree_norm(dy))
         _accumulate(dy_acc, w_seq[i], dy)
         _accumulate(dc_acc, w_seq[i], dc)
+        if shard_fn is not None:
+            dy_acc, dc_acc = shard_fn(dy_acc), shard_fn(dc_acc)
         del dy, dc
         losses.append(loss)
 
@@ -364,9 +385,10 @@ def run_round(grad_fn, spec, server: ServerState, clients: ClientRoundState,
 
 def federated_round(grad_fn, spec, x, c, c_i, batches, momentum=None,
                     weights=None, uplink_res=None,
-                    use_fused_update: bool = False, comp_key=None):
+                    use_fused_update: bool = False, shard_fn=None,
+                    comp_key=None):
     """The reference's back-compat shim over :func:`run_round` (its seed
-    signature; the port has no ``shard_fn``).
+    signature).
 
     x, c: the server model and control variate; c_i: the sampled clients'
     control variates, leaves (S, ...), written over in place as
@@ -394,7 +416,8 @@ def federated_round(grad_fn, spec, x, c, c_i, batches, momentum=None,
         grad_fn, spec, ServerState(x=x, c=c, opt_state=opt_state),
         ClientRoundState(c_i=c_i, uplink_residual=uplink_res,
                          weights=weights),
-        batches, use_fused_update=use_fused_update, comp_key=comp_key)
+        batches, use_fused_update=use_fused_update, shard_fn=shard_fn,
+        comp_key=comp_key)
     if whole_batch:
         return out.server.x, out.server.c, out.clients.c_i, out.metrics
     outs = [out.server.x, out.server.c, out.clients.c_i]

@@ -23,7 +23,9 @@ One route a dtype, by this rule:
   * anything else raises.
 ``LAUNCHES`` counts the fp32 kernel's launches; the CUDA wrappers add one
 where they launch, nowhere else (a launch captured in a CUDA graph once
-at each replay, ``kernels.counts``).
+at each replay, ``kernels.counts``). On a census's fake CUDA tensors
+(``launch.census``) the fp32 wrappers make their outputs, launch nothing
+and count the launch on the census's tally.
 """
 from __future__ import annotations
 
@@ -73,12 +75,16 @@ def _check(a, b, ends) -> None:
 
 def _cuda_fp32(what: str, *ts) -> None:
     for t in ts:
-        if t.device.type != "cuda" or t.dtype != torch.float32:
+        if (t.device.type != "cuda" and not counts.fake(t)
+                or t.dtype != torch.float32):
             raise ValueError(f"{what}: wants fp32 CUDA tensors, got "
                              f"{t.dtype} on {t.device}")
 
 
 def _launch(what: str, fn, args, device) -> None:
+    if fn is None:  # a census's fake tensors: counted, not launched
+        counts.count(LAUNCHES, "grouped_mm")
+        return
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*args, stream)
@@ -94,6 +100,9 @@ def grouped_mm_cuda(a, b, ends):
     m, k = a.shape
     g, _, n = b.shape
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if counts.fake(a):
+        _launch("grouped_mm", None, (), a.device)
+        return out
     ends = ends.contiguous()
     _launch("grouped_mm", _fn("grouped_mm_fwd", 3),
             (m, k, n, g, a.data_ptr(), *a.stride(), b.data_ptr(),
@@ -114,6 +123,9 @@ def grouped_mm_wgrad_cuda(a, d, ends):
     m, k = a.shape
     n, g = d.shape[1], ends.shape[0]
     out = torch.empty((g, k, n), dtype=torch.float32, device=a.device)
+    if counts.fake(a):
+        _launch("grouped_mm_wgrad", None, (), a.device)
+        return out
     ends = ends.contiguous()
     _launch("grouped_mm_wgrad", _fn("grouped_mm_wgrad", 2),
             (m, k, n, g, a.data_ptr(), *a.stride(), d.data_ptr(),
@@ -157,9 +169,10 @@ def grouped_mm(a, b, ends):
     each group g -> (M, N) in a's dtype, rows past ``ends[-1]`` zero;
     the route by device and dtype as the module says."""
     _check(a, b, ends)
-    if a.device.type == "cpu":
+    card = a.device.type == "cuda" or counts.fake(a)
+    if a.device.type == "cpu" and not card:
         return ref.grouped_mm_ref(a, b, ends)
-    if a.device.type != "cuda":
+    if not card:
         raise ValueError(f"grouped_mm: tensors on {a.device}")
     if a.dtype == torch.bfloat16:
         return _ContiguousGrad.apply(torch._grouped_mm(a, b, offs=ends))

@@ -23,7 +23,9 @@ Launches count in ``ops.LAUNCHES["scaffold_local_loop"]`` (B3) and
 the plans they launched with; a launch captured in a CUDA graph counts
 at each replay (``kernels.counts``). The cooperative launch goes through
 ``cudaLaunchKernelEx`` with the cooperative attribute, which a stream
-capture records as a graph node.
+capture records as a graph node. On a census's fake CUDA tensors
+(``launch.census``) the wrapper checks them, launches nothing and counts
+the launch on the census's tally (no plan: a plan needs the card).
 """
 from __future__ import annotations
 
@@ -199,11 +201,16 @@ def scaffold_local_loop_cuda(y, corr, eta_table, A, b, *, m=None,
     if eta.shape != (K,):
         raise ValueError(f"scaffold_local_loop: eta table {tuple(eta.shape)}"
                          f" for K={K}")
-    plan = local_loop_plan(d, K, A.stride(0), _sm_count(y.device))
-    lib = _lib()
+    name = ("scaffold_local_loop" if m is None
+            else "scaffold_momentum_local_loop")
     y_out = torch.empty_like(y)
     m_out = None if m is None else torch.empty_like(m)
     losses = torch.empty(K, dtype=torch.float32, device=y.device)
+    if counts.fake(y):  # a census: counted, not launched (no card: no plan)
+        counts.count(LAUNCHES, name)
+        return y_out, m_out, losses
+    plan = local_loop_plan(d, K, A.stride(0), _sm_count(y.device))
+    lib = _lib()
     # scratch: ybuf (2, d), then partials (K, grid)
     scratch = torch.empty(2 * d + K * plan.grid, dtype=torch.float32,
                           device=y.device)
@@ -222,8 +229,6 @@ def scaffold_local_loop_cuda(y, corr, eta_table, A, b, *, m=None,
             scratch.data_ptr() + 2 * d * 4, K, bsz,
             d, plan.grid, plan.rows, plan.chunk, plan.resident,
             plan.smem_bytes, stream)
-    name = ("scaffold_local_loop" if m is None
-            else "scaffold_momentum_local_loop")
     _check_launch(err, name, plan)
     counts.count(LAUNCHES, name)
     counts.count(PLANS[name], plan)

@@ -33,7 +33,9 @@ for CUDA tensors it launches the kernel or raises. ``LAUNCHES`` counts the
 kernel launches of this process, by kernel name; a wrapper adds one where
 it launches, nowhere else (a group with no element launches nothing).
 A launch captured in a CUDA graph counts once at each replay
-(``kernels.counts``). The launch reads the tree's pointers, ``eta`` and
+(``kernels.counts``). On a census's fake CUDA tensors
+(``launch.census``) a wrapper checks the tree as on the card, launches
+nothing and counts one launch a dtype group on the census's tally. The launch reads the tree's pointers, ``eta`` and
 ``beta`` by value, so a captured launch keeps them: the trainer captures
 a round over static buffers and a constant ``eta_l``.
 """
@@ -186,10 +188,11 @@ class _Group(NamedTuple):
     take: Tuple[int, ...]  # the leaves of each role, in ``_groups``' list
 
 
-def _validate(name, roles, dev, pos) -> Tuple[_Group, ...]:
+def _validate(name, roles, dev, pos, fake=False) -> Tuple[_Group, ...]:
     """Check a tree once (structure, devices, dtypes, shapes, contiguity)
-    and plan a launch per dtype group on the card. ``pos[r]`` is the
-    position of role r's dict among the distinct dicts of ``roles``."""
+    and plan a launch per dtype group on the card (no plan for a census's
+    fake tensors). ``pos[r]`` is the position of role r's dict among the
+    distinct dicts of ``roles``."""
     y = roles[0]
     for what, t in zip(ROLES[1:], roles[1:]):
         if t.keys() != y.keys():
@@ -204,7 +207,7 @@ def _validate(name, roles, dev, pos) -> Tuple[_Group, ...]:
     m = roles[4] if len(roles) > 4 else None
     for (device, *dtypes), keys in dtype_groups(*roles[:3], m).items():
         take = tuple(p * len(y) + index[k] for p in pos for k in keys)
-        if dev.type == "cpu":
+        if dev.type == "cpu" or fake:
             groups.append(_Group(tuple(keys), None, None, None, take))
             continue
         codes = tuple(DTYPE_CODES[d] for d in dtypes)
@@ -221,7 +224,7 @@ def _validate(name, roles, dev, pos) -> Tuple[_Group, ...]:
 _VALIDATED: Dict[tuple, Tuple[_Group, ...]] = {}
 
 
-def _groups(name, roles, dev):
+def _groups(name, roles, dev, fake=False):
     """``(groups, leaves)``: the validated groups of a tree, from the
     cache when its signature (keys, which roles share a dict, and each
     leaf's dtype, shape, device and contiguity) was seen, and the leaves
@@ -242,12 +245,13 @@ def _groups(name, roles, dev):
     except KeyError:  # a tree without one of y's keys: _validate raises
         leaves, sig = None, None
     else:
-        sig = (name, dev.type, keys, tuple(pos), tuple(map(len, distinct)),
+        sig = (name, dev.type, fake, keys, tuple(pos),
+               tuple(map(len, distinct)),
                tuple((t.dtype, t.shape, t.device, t.is_contiguous())
                      for t in leaves))
     groups = _VALIDATED.get(sig)
     if groups is None:
-        groups = _validate(name, roles, dev, pos)
+        groups = _validate(name, roles, dev, pos, fake)
         if len(_VALIDATED) >= CACHE_SIZE:
             _VALIDATED.clear()
         _VALIDATED[sig] = groups
@@ -279,7 +283,8 @@ def _packed(name, y, g, corr, out, eta: float, m=None, m_out=None,
     card."""
     dev = resolve_device(device)
     roles = (y, g, corr, out) if m is None else (y, g, corr, out, m, m_out)
-    groups, leaves = _groups(name, roles, dev)
+    fake = counts.fake(next(iter(y.values())))
+    groups, leaves = _groups(name, roles, dev, fake)
     if dev.type == "cpu":
         for k, yy in y.items():
             if m is None:
@@ -291,6 +296,11 @@ def _packed(name, y, g, corr, out, eta: float, m=None, m_out=None,
                 m_out[k].copy_(m_new)
         return
     kernel = "scaffold_update" if m is None else "scaffold_momentum_update"
+    if fake:  # a census: one launch a group with an element, none made
+        for grp in groups:
+            if any(y[k].numel() for k in grp.keys):
+                counts.count(LAUNCHES, kernel)
+        return
     ptrs = [t.data_ptr() for t in leaves]
     eta, beta = float(eta), float(beta)
     for grp in groups:

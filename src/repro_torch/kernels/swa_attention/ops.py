@@ -24,7 +24,10 @@ wrapper adds one where it launches, nowhere else, and a launch captured
 in a CUDA graph once at each replay (``kernels.counts``). The bf16
 body's TMA descriptors are built on the host from the tensors'
 addresses and passed by value: a captured launch reads the same
-addresses at every replay, which the graph's memory pool keeps.
+addresses at every replay, which the graph's memory pool keeps. On a
+census's fake CUDA tensors (``launch.census``) the CUDA wrapper checks
+them as on the card, makes the output, launches nothing and counts the
+launch on the census's tally.
 """
 from __future__ import annotations
 
@@ -92,7 +95,8 @@ def swa_attention_cuda(q, k, v, window: int):
     """One launch of the sliding-window kernel on CUDA tensors in layout
     (B, S, H, D); returns a fresh contiguous (B, S, Hq, D) output."""
     _check(q, k, v, window)
-    if q.device.type != "cuda":
+    fake = counts.fake(q)
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"swa_attention_cuda: tensors on {q.device}")
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"swa_attention_cuda: dtype {q.dtype} not in "
@@ -105,9 +109,12 @@ def swa_attention_cuda(q, k, v, window: int):
         if t.stride(-1) != 1:
             raise ValueError(f"swa_attention_cuda: {what}'s head dim is "
                              f"not contiguous (strides {t.stride()})")
-        if q.dtype == torch.bfloat16:
+        if q.dtype == torch.bfloat16 and not fake:
             _check_tma(what, t)
     o = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    if fake:
+        counts.count(LAUNCHES, "swa_attention")
+        return o
     strides = (ctypes.c_longlong * 12)(*[st for t in (q, k, v, o)
                                          for st in t.stride()[:3]])
     fn = _lib()
@@ -132,9 +139,9 @@ class _SlidingWindowAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, window):
         ctx.save_for_backward(q, k, v)
         ctx.window = window
-        if q.device.type == "cpu":
+        if q.device.type == "cpu" and not counts.fake(q):
             return _plain(q, k, v, window)
-        if q.device.type == "cuda":
+        if q.device.type == "cuda" or counts.fake(q):
             return swa_attention_cuda(q, k, v, window)
         raise ValueError(f"swa_attention: tensors on {q.device}")
 

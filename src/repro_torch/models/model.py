@@ -1,7 +1,8 @@
 """Public model API (the JAX package's ``models/model.py``): init,
 forward and the next-token loss that the federated core consumes, and
 the serving substrate: ``prefill``, ``init_cache``,
-``populate_encoder_cache`` and ``decode_step``.
+``populate_encoder_cache`` and ``decode_step``, and the dry run's
+``input_specs``.
 
 Parameters are a flat ``dict[str, Tensor]`` keyed by the reference's
 pytree paths (``embed``, ``ln_final/scale``, ``layers/0/attn/wq``,
@@ -28,6 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.activations import constrain_batch_dim, constrain_spec
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -155,7 +157,7 @@ def _embed(cfg, params, tokens):
         # (bf16: sqrt(1152) = 33.94 -> 34.0)
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
                            device=x.device)
-    return x.to(_dtype(cfg.compute_dtype))
+    return constrain_batch_dim(x.to(_dtype(cfg.compute_dtype)))
 
 
 def _unembed(cfg, params, x):
@@ -239,6 +241,9 @@ def _chunked_ce(cfg, params, hidden, labels, mask):
         # their concatenation, contiguous as the fused steps need it
         chunks = [u.T for u in params["unembed"].split(chunk, dim=1)]
     for ci, w_chunk in enumerate(chunks):
+        # each chunk stays split over "model" on its vocab rows (the
+        # reference's constraint on its stacked chunks)
+        w_chunk = constrain_spec(w_chunk, ("model", None))
         m, acc, gold = checkpoint(_ce_chunk, hidden, w_chunk, labels, m, acc,
                                   gold, ci * chunk, cfg.logit_softcap,
                                   use_reentrant=False)
@@ -285,7 +290,10 @@ def init_cache(cfg, batch_size: int, seq_len: int, device="cuda"):
     """Zero decode caches for ``batch_size`` rows of up to ``seq_len``
     tokens in the compute dtype (the SSD state in fp32), plus ``enc_out``
     (B, frames, E) for an encoder-decoder."""
-    dev = resolve_device(device)
+    return _cache_tree(cfg, batch_size, seq_len, resolve_device(device))
+
+
+def _cache_tree(cfg, batch_size: int, seq_len: int, dev: torch.device):
     dtype = _dtype(cfg.compute_dtype)
     cache = T.init_cache(cfg, batch_size, seq_len, dtype, dev)
     if cfg.encoder is not None:
@@ -324,3 +332,58 @@ def decode_step(cfg, params, cache, tokens, pos):
     x = T.decode_stack(cfg, params, x, cache, pos)
     x = L.apply_norm(cfg, x, T.sub(params, "ln_final"))
     return _unembed(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# dry-run input specs
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg, shape, round_spec=None, device="meta"):
+    """Stand-ins for every model input of (cfg, shape), the reference's
+    keys, shapes and dtypes: on the meta device by default (nothing is
+    allocated), or on ``device`` inside ``launch.census`` (fake tensors).
+
+    train:   one round's batch, leaves (S, K, b_local, text_len):
+             ``tokens``, ``labels``, plus ``frames`` (S, K, b, frames, E)
+             or ``patches`` (S, K, b, prefix, E) where the config has an
+             encoder or a prefix;
+    prefill: the request batch ``tokens`` (B, text_len) and the same
+             stub inputs (B, ..., E);
+    decode:  ``tokens`` (B, 1), ``pos`` (B,) and ``cache``, the flat dict
+             of ``init_cache`` at the shape's seq_len.
+    """
+    dev = torch.device("meta") if device == "meta" else resolve_device(device)
+    i32 = torch.int32
+    cdt = _dtype(cfg.compute_dtype)
+    text_len = shape.seq_len - cfg.num_prefix_tokens
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=dev)
+
+    def stubs(lead):
+        out = {}
+        if cfg.encoder is not None:
+            out["frames"] = sds(lead + (cfg.encoder.num_frames, cfg.d_model),
+                                cdt)
+        if cfg.num_prefix_tokens:
+            out["patches"] = sds(lead + (cfg.num_prefix_tokens, cfg.d_model),
+                                 cdt)
+        return out
+
+    if shape.kind == "train":
+        assert round_spec is not None
+        s, k, bl = (round_spec.num_sampled, round_spec.local_steps,
+                    round_spec.local_batch)
+        assert s * k * bl == shape.global_batch, (s, k, bl,
+                                                  shape.global_batch)
+        return {"tokens": sds((s, k, bl, text_len), i32),
+                "labels": sds((s, k, bl, text_len), i32),
+                **stubs((s, k, bl))}
+    if shape.kind == "prefill":
+        return {"tokens": sds((shape.global_batch, text_len), i32),
+                **stubs((shape.global_batch,))}
+    # decode: one new token against a seq_len-sized cache
+    b = shape.global_batch
+    return {"tokens": sds((b, 1), i32), "pos": sds((b,), i32),
+            "cache": _cache_tree(cfg, b, shape.seq_len, dev)}

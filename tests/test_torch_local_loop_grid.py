@@ -12,10 +12,16 @@ the port's plain version (rtol 1e-6: the same fp32 sums cut at other
 places) and to the JAX package's Pallas loop in interpret mode (rtol
 1e-5, as
 ``tests/test_torch_megakernel.py``). y_K and m_K are held relative to
-their largest entry; a loss relative to the size of its two terms,
-``|0.5 y.Am y| + |bm.y|``, of which it is the difference (at d 1000 a
-loss of 0.58 from terms of -13.6 and 14.2, so fp32 sums in any order
-sit ~1e-5 of the loss apart). The plan's invariants
+their largest entry. Against the Pallas loop a loss is held relative to
+the size of its two terms, ``|0.5 y.Am y| + |bm.y|``, of which it is the
+difference (at d 1000 a loss of 0.58 from terms of -13.6 and 14.2, so
+fp32 sums in any order sit ~1e-5 of the loss apart). Against the plain
+version it is held to the bound of the fp32 sums' own error: both sides
+sum the same d products ``0.5 y_i u_i + bm_i y_i`` (u the same matvec on
+both), each in its own order (the plain version's ``torch.dot`` in the
+order of the machine's BLAS), and a sum of d fp32 terms in any order is
+within ``gamma_d * sum |term_i|`` of the exact one, ``gamma_d = d u / (1
+- d u)``, u = 2^-24; the two losses lie within twice that. The plan's invariants
 (``local_loop_plan``) are checked here too: the kernel itself runs only
 on the card (``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py``).
 """
@@ -51,7 +57,8 @@ def one_thread():
         torch.set_num_threads(n)
 
 
-def grid_emulation(y, corr, eta, A, b, G, *, m=None, beta=0.0, terms=None):
+def grid_emulation(y, corr, eta, A, b, G, *, m=None, beta=0.0, terms=None,
+                   abs_terms=None, drop_last_partial=False):
     """The grid kernel's arithmetic in float32 for a card of ``G`` SMs,
     its blocks side by side: block j owns entries [j R, (j + 1) R) (the
     last block the rest, zero-padded here: a zero adds nothing to a
@@ -59,7 +66,10 @@ def grid_emulation(y, corr, eta, A, b, G, *, m=None, beta=0.0, terms=None):
     ``0.5 y_I.u_I + bm_I.y_I`` summed over its own entries, and the
     step's loss as the fp32 sum of the partials in block order. Returns
     ``(y_K, m_K | None, losses)``; appends each step's ``|0.5 y.Am y| +
-    |bm.y|`` to the list ``terms`` if given."""
+    |bm.y|`` to the list ``terms`` and its ``sum_i |0.5 y_i u_i| + |bm_i
+    y_i|`` (float64) to ``abs_terms``, if given. ``drop_last_partial``
+    leaves the last block's partial out of each loss (a fault, for the
+    negative control)."""
     d, K = y.shape[0], A.shape[0]
     grid, R = mk.grid_shape(d, G)
 
@@ -79,10 +89,14 @@ def grid_emulation(y, corr, eta, A, b, G, *, m=None, beta=0.0, terms=None):
         q = 0.5 * (blocks(u) * yb).sum(dim=1)
         li = (blocks(bm[k]) * yb).sum(dim=1)
         # the partials summed one after another in fp32, in block order
-        part = (q + li).numpy()
+        part = (q + li).numpy()[:grid - 1 if drop_last_partial else grid]
         losses.append(torch.tensor(np.add.accumulate(part)[-1]))
         if terms is not None:
             terms.append(abs(sum(q.tolist())) + abs(sum(li.tolist())))
+        if abs_terms is not None:
+            abs_terms.append(float((0.5 * u.double() * y32.double()).abs().sum()
+                                   + (bm[k].double() * y32.double()).abs()
+                                   .sum()))
         g = 0.5 * (u + v) + bm[k] + c32
         if mm is not None:
             mm = beta * mm + g
@@ -116,15 +130,25 @@ def _close(got, want, rtol, scale=None):
     return np.abs(a - b).max() <= rtol * max(scale, 1e-30)
 
 
-def _all_close(got, want, rtol, terms):
-    """y_K, m_K to rtol of their largest entry, the losses to rtol of
-    their largest terms."""
-    for what, g, w in zip(("y_K", "m_K", "losses"), got, want):
+def _all_close(got, want, rtol, terms=None, abs_terms=None):
+    """y_K, m_K to rtol of their largest entry; the losses to rtol of
+    their largest terms, or, given ``abs_terms``, each within twice the
+    error bound of an fp32 sum of its d products (the module's
+    docstring)."""
+    for what, g, w in zip(("y_K", "m_K"), got, want):
         assert (g is None) == (w is None), what
         if g is not None:
             assert tuple(g.shape) == tuple(w.shape), what
-            assert _close(g, w, rtol, max(terms) if what == "losses"
-                          else None), what
+            assert _close(g, w, rtol), what
+    g, w = np.asarray(got[2], np.float64), np.asarray(want[2], np.float64)
+    assert g.shape == w.shape
+    if abs_terms is None:
+        assert _close(g, w, rtol, max(terms)), "losses"
+        return
+    d = got[0].shape[0]
+    gamma = d * 2.0 ** -24 / (1 - d * 2.0 ** -24)
+    bound = 2 * gamma * np.asarray(abs_terms)
+    assert (np.abs(g - w) <= bound).all(), ("losses", np.abs(g - w), bound)
 
 
 CASES = [(d, bsz, K, slot) for d in (20, 1000, 1024) for bsz in (1, 2)
@@ -149,13 +173,32 @@ def _jax_loop(d, bsz, K, slot):
 def test_grid_emulation_matches_plain(G, d, bsz, K, slot):
     t = _torch(_inputs(d, K, bsz, slot))
     beta = 0.9 if slot else 0.0
-    terms = []
+    abs_terms = []
     got = grid_emulation(t["y"], t["corr"], t["eta"], t["A"], t["b"], G,
-                         m=t["m"], beta=beta, terms=terms)
+                         m=t["m"], beta=beta, abs_terms=abs_terms)
     want = ref.scaffold_local_loop_ref(t["y"], t["corr"], t["eta"], t["A"],
                                        t["b"], m=t["m"], beta=beta)
-    assert got[0].dtype == want[0].dtype and len(terms) == K
-    _all_close(got, want, 1e-6, terms)
+    assert got[0].dtype == want[0].dtype and len(abs_terms) == K
+    _all_close(got, want, 1e-6, abs_terms=abs_terms)
+
+
+@pytest.mark.parametrize("what,fails", [
+    ("eta", "y_K"), ("corr", "y_K"), ("last_partial", "losses")])
+def test_grid_emulation_check_rejects_a_wrong_step(what, fails):
+    """The negative controls: the emulation with eta 1 % off, or without
+    the correction, fails y_K against the plain version; with its last
+    block's partial left out of each loss (y_K right), the losses."""
+    t = _torch(_inputs(1024, 10, 1, False))
+    eta = t["eta"] * 1.01 if what == "eta" else t["eta"]
+    corr = None if what == "corr" else t["corr"]
+    abs_terms = []
+    got = grid_emulation(t["y"], corr, eta, t["A"], t["b"], 7,
+                         abs_terms=abs_terms,
+                         drop_last_partial=what == "last_partial")
+    want = ref.scaffold_local_loop_ref(t["y"], t["corr"], t["eta"], t["A"],
+                                       t["b"])
+    with pytest.raises(AssertionError, match=fails):
+        _all_close(got, want, 1e-6, abs_terms=abs_terms)
 
 
 @pytest.mark.parametrize("d,bsz,K,slot", CASES)

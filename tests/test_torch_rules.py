@@ -163,3 +163,24 @@ def test_model_config_and_llama_are_copies():
                     get_reduced("llama3.2-3b"))):
         assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
         assert jc.pattern_for_layers() == tc.pattern_for_layers()
+
+
+@pytest.mark.parametrize("name", ["InputShape", "TrainConfig"])
+def test_input_shape_and_train_config_are_field_for_field_copies(name):
+    import repro.configs.base as JB
+    import repro_torch.configs.base as TB
+
+    jf = [(f.name, f.default) for f in dataclasses.fields(getattr(JB, name))]
+    tf = [(f.name, f.default) for f in dataclasses.fields(getattr(TB, name))]
+    assert jf == tf
+    if name == "InputShape":
+        j = JB.InputShape("s", seq_len=8, global_batch=2, kind="train")
+        t = TB.InputShape("s", seq_len=8, global_batch=2, kind="train")
+    else:
+        base = dict(num_clients=4, num_sampled=2, local_steps=2,
+                    local_batch=1, algorithm="scaffold")
+        j = JB.TrainConfig(jax_get_reduced("llama3.2-3b"),
+                           JSpec(**base), seq_len=64, rounds=3)
+        t = TB.TrainConfig(get_reduced("llama3.2-3b"), TSpec(**base),
+                           seq_len=64, rounds=3)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
